@@ -5,7 +5,7 @@ The reference has no autodiff — its examples hand-derive gradients
 are jax-traceable by construction, so the whole functional-transform
 toolbox comes for free: :func:`as_function` lowers a DAG to a pure
 function of chosen leaves, and :func:`grad` / :func:`value_and_grad`
-differentiate any scalar expr with respect to its inputs — a TPU-native
+differentiate any scalar expr with respect to its inputs — a device-native
 capability the RPC-based original could never offer.
 """
 
@@ -31,7 +31,7 @@ def as_function(expr: Expr, wrt: Sequence[Expr],
   ``sp.from_numpy``); every other leaf is closed over as a constant.
   Optimizer passes run first; leaf object identity survives them.
   ``differentiable=True`` asks emitters for autodiff-safe lowerings
-  (no Pallas kernels / collective fast paths) — same values, same avals.
+  (no collective fast paths) — same values, same avals.
   """
   wrt_ids = [w.expr_id for w in wrt]
   for w in wrt:

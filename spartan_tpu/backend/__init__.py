@@ -1,3 +1,3 @@
-"""Execution backend: region evaluator, collectives, Pallas kernels."""
+"""Execution backend: region evaluator, collectives, sparse tiles."""
 
 from spartan_tpu.backend import evaluator

@@ -1,6 +1,6 @@
 """Region evaluator: lazy DAG → fused jitted XLA computations.
 
-TPU-native rebuild of the reference's evaluation engine (reference:
+Rebuild of the reference's evaluation engine (reference:
 ``spartan/expr/base.py`` ``Expr.evaluate`` → optimizer → topological eval
 with a per-expr cache, dispatching per-tile kernels through
 ``blob_ctx.map`` RPC fan-out; SURVEY.md §3.2).  The entire dashed region of
@@ -13,7 +13,7 @@ becomes ONE ``jax.jit``-compiled XLA program over sharded arrays:
   reference's expr-eval cache, hoisted to compiled-computation granularity
   so iterative workloads hit the XLA compile cache every step);
 * ``out_shardings`` comes from the AutoTiling pass — sharding is
-  placement, XLA inserts the ICI collectives.
+  placement, XLA inserts the collectives.
 """
 
 from __future__ import annotations
@@ -362,8 +362,8 @@ def evaluate(expr: Expr):
 
   mesh_key = (tuple(mesh.axis_names), tuple(mesh.devices.shape),
               tuple(int(d.id) for d in mesh_devices))
-  flags_key = (semantic_flags_fingerprint(), FLAGS.use_pallas,
-               FLAGS.pallas_interpret, _opt_flags_fingerprint(), mesh_key)
+  flags_key = (semantic_flags_fingerprint(), _opt_flags_fingerprint(),
+               mesh_key)
 
   # -- fast lane: skip the optimizer when this structure was seen before.
   # Only valid when no interior node carries an eval cache (a cached

@@ -1,10 +1,10 @@
 """``sp.cluster`` — the scipy.cluster surface (vq + hierarchy).
 
-``vq`` is the canonical MXU workload (the examples/kmeans pattern):
+``vq`` is the canonical matmul workload (the examples/kmeans pattern):
 ``vq``/``py_vq`` assignment is one pairwise-distance matmul + argmin,
 ``kmeans``/``kmeans2`` run each refinement as a fused ``lax`` loop on
 device — distances → argmin → one-hot matmul center update in a
-single HBM pass per iteration (47x over scatter-add on v5e), with
+single memory pass per iteration, with
 k-means++ and farthest-point device seeding.
 
 ``hierarchy`` is the host boundary: agglomerative linkage is an
@@ -12,7 +12,7 @@ inherently sequential nearest-pair merge chain (n-1 data-dependent
 steps — no batched/SPMD formulation exists at scipy semantics), so
 the whole submodule re-exports through the once-per-process-notice
 wrapper; the device contribution for big inputs is computing the
-condensed distance input with the MXU (``sp.spatial.distance.pdist``)
+condensed distance input with the matrix units (``sp.spatial.distance.pdist``)
 before handing the (n²/2)-sized reduction to the host tree builder.
 
 Reference parity: the spartan reference has no cluster module;
@@ -44,7 +44,7 @@ _py_callable = callable
 # ---------------------------------------------------------------------
 
 def _pair_sq(x, c):
-  """(n,d),(k,d) -> (n,k) squared distances, MXU-routed."""
+  """(n,d),(k,d) -> (n,k) squared distances, matmul-routed."""
   return ((x * x).sum(-1)[:, None] + (c * c).sum(-1)[None, :]
           - 2.0 * jnp.matmul(x, c.T, precision="highest"))
 
@@ -59,7 +59,7 @@ def whiten(obs, check_finite=True):
 
 
 def vq(obs, code_book, check_finite=True):
-  """Assign each observation to the nearest code (one MXU pass).
+  """Assign each observation to the nearest code (one matmul pass).
 
   Returns lazy (codes, dists) — scipy's (code, dist) contract."""
   O, C = sp.lazify(obs), sp.lazify(code_book)
@@ -220,7 +220,7 @@ class ClusterError(Exception):
 # becomes the submodule holding them (vq.vq is the assignment fn,
 # matching scipy's layout)
 vq_mod = _types.ModuleType("spartan_tpu.cluster.vq")
-vq_mod.__doc__ = "scipy.cluster.vq surface (device MXU kernels)."
+vq_mod.__doc__ = "scipy.cluster.vq surface (device matmul kernels)."
 for _n, _o in [("whiten", whiten), ("vq", vq), ("py_vq", py_vq),
                ("kmeans", kmeans), ("kmeans2", kmeans2),
                ("ClusterError", ClusterError)]:

@@ -1,6 +1,6 @@
 """Tile geometry algebra.
 
-TPU-native rebuild of the reference's extent module (reference:
+Rebuild of the reference's extent module (reference:
 ``spartan/array/extent.py`` — ``TileExtent(ul, lr, array_shape)`` with
 ``intersection`` / ``create`` / ``compute_slice`` / ``offset_from`` /
 ``find_overlapping`` / ``from_slice`` and ravel/unravel index math;

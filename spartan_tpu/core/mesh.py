@@ -2,10 +2,10 @@
 
 In the reference, array placement is the master's job — tile → worker maps
 chosen round-robin/random/locality (reference: ``spartan/master.py``,
-SURVEY.md §2.1).  In the TPU rebuild *sharding is placement*: a global
+SURVEY.md §2.1).  In this rebuild *sharding is placement*: a global
 ``jax.sharding.Mesh`` over the slice, with ``NamedSharding`` PartitionSpecs
-standing in for tile→worker maps, and XLA collectives over ICI/DCN standing
-in for the RPC fetch/update protocol (SURVEY.md §2.4).
+standing in for tile→worker maps, and XLA collectives over the
+interconnect standing in for the RPC fetch/update protocol (SURVEY.md §2.4).
 
 The default mesh factors the device count into a near-square 2-D mesh with
 axes ``('x', 'y')`` (2-D tile grids map dims→axes directly; 1-D arrays shard

@@ -1,6 +1,6 @@
 """Tiling: logical tile grids ↔ physical shardings.
 
-TPU-native rebuild of the reference's tile/partitioner layer (reference:
+Rebuild of the reference's tile/partitioner layer (reference:
 ``spartan/array/distarray.py`` — ``{TileExtent → blob_id}`` maps built from
 ``tile_hint``s; SURVEY.md §2.1, §7).  A :class:`Tiling` pairs a mesh with a
 ``PartitionSpec``; the logical tile grid (the list of per-shard
@@ -140,7 +140,7 @@ def choose_spec(shape: Sequence[int], mesh: Mesh,
     split_dims = sorted(set(int(d) % len(shape) for d in split_dims))
 
   # XLA shardings require each dim divisible by its shard count — the tiler
-  # only ever proposes even splits (TPU-first: static, aligned tiles).
+  # only ever proposes even splits (Device-first: static, aligned tiles).
   entries: List = [None] * len(shape)
   if len(split_dims) == 1:
     d = split_dims[0]

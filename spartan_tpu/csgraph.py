@@ -2,7 +2,7 @@
 
 The reference has no graph-algorithms module (SURVEY.md §2.5 — PageRank
 is its only graph workload); this is beyond-parity surface built
-TPU-first:
+Device-first:
 
 * **Shortest paths / components are min-plus relaxations** expressed as
   GATHERS over the padded-ELL layout (no scatters): for target ``j``,
@@ -12,7 +12,7 @@ TPU-first:
   ``sp.while_loop`` with a data-dependent changed-flag stop — the same
   fused-loop design as sparse_linalg's solvers.
 * **Floyd–Warshall** runs dense: a ``fori_loop`` carrying ``(k, D)``
-  with traced-index ``take`` for the pivot row/column — n VPU-fused
+  with traced-index ``take`` for the pivot row/column — n fused
   (n, n) min-plus updates, no host round trips.
 * **Inherently sequential / structure-output algorithms** (DFS, minimum
   spanning tree, RCM ordering, bipartite matching, strong components)
@@ -240,7 +240,7 @@ def dijkstra(csgraph, directed=True, indices=None,
              return_predecessors=False, unweighted=False, limit=_INF):
   """Shortest paths for NON-NEGATIVE weights.
 
-  TPU-first note: priority queues are hostile to SIMD hardware; for
+  Device-first note: priority queues are hostile to SIMD hardware; for
   non-negative weights Bellman–Ford relaxation converges to the same
   distances, so this routes to the same fused relaxation loop
   (scipy.sparse.csgraph.dijkstra file-level parity, different

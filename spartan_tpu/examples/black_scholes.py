@@ -5,7 +5,7 @@ embarrassingly-parallel map demo; SURVEY.md §2.5 broader demo set).  The
 whole closed form is one elementwise chain over the tiled price/strike/
 expiry arrays, so the optimizer fuses it into a single jitted region —
 zero collectives (the SPMD-lowering suite asserts elementwise chains are
-collective-free) and one HBM pass per operand on TPU.
+collective-free) and one memory pass per operand.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Reference: ``spartan/examples/cholesky.py`` (SURVEY.md §2.5 broader demo
 set) — the reference's tile-parallel right-looking Cholesky: per
 block-column, factor the small diagonal block, solve the panel, and
-rank-k-update the trailing submatrix across tiles.  TPU shape: the
+rank-k-update the trailing submatrix across tiles.  Device shape: the
 diagonal factor and triangular inverse are O(b³) on a b×b block (driver-
 side numpy, like the reference's single-tile kernels); the panel solve
 and the trailing ``A -= P Pᵀ`` update — all the O(n²b) work — run as

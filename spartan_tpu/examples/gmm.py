@@ -2,9 +2,9 @@
 in ONE compiled on-device loop.
 
 Reference parity: extends the reference's clustering demos (k-means /
-fuzzy k-means — SURVEY.md §2.5) to soft assignments.  TPU shape: the
+fuzzy k-means — SURVEY.md §2.5) to soft assignments.  Device shape: the
 E-step responsibilities and every M-step moment are (n,k)/(n,d) matmuls
-on the MXU; `sp.make_fori` compiles the full EM iteration into a single
+on the matrix units; `sp.make_fori` compiles the full EM iteration into a single
 XLA program (no per-step dispatch).
 """
 
@@ -21,7 +21,7 @@ def em_step(X, mu, var, pi, eps: float = 1e-6):
   """One EM step; all ops lazy/sharded.  X (n,d); mu,var (k,d); pi (k,)."""
   n, d = X.shape
   # E-step: log N(x | mu_k, diag var_k) via the expanded quadratic —
-  # each term is an (n,d)@(d,k) matmul (MXU) instead of an (n,k,d) cube
+  # each term is an (n,d)@(d,k) matmul instead of an (n,k,d) cube
   iv = 1.0 / var                                     # (k,d)
   quad = (sp.dot(X * X, sp.transpose(iv))
           - 2.0 * sp.dot(X, sp.transpose(mu * iv))

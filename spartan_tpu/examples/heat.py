@@ -2,10 +2,10 @@
 
 Reference parity: the reference's stencil module existed exactly for
 this class of workload — per-tile kernels with cross-tile halo fetches
-(``spartan/expr/stencil.py``, SURVEY.md §2.1/§2.3 CP row).  TPU shape:
+(``spartan/expr/stencil.py``, SURVEY.md §2.1/§2.3 CP row).  Here
 the 5-point Laplacian is a single-channel `sp.stencil`, which the r3
-emission lowers to shifted-add slices (the XLA conv lowering is 100×
-off roofline for O=I=1 — see `expr/stencil.py`); the whole time loop
+emission lowers to shifted-add slices (see `expr/stencil.py`); the whole
+time loop
 runs on device in ONE compiled program via `sp.make_fori`, and on a
 mesh the sharded-H slices get their halo exchanges from the SPMD
 partitioner automatically.
@@ -13,7 +13,12 @@ partitioner automatically.
 
 from __future__ import annotations
 
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 import spartan_tpu as sp
 
@@ -34,33 +39,40 @@ def simulate(u0, iters: int = 100, alpha: float = 0.1):
   return run(iters)
 
 
+@functools.partial(jax.jit, static_argnames=("coeffs", "steps", "unroll"))
+def stencil_sweeps(u, add, coeffs, steps: int, unroll: int = 8):
+  """``steps`` applications of ``u <- Σ_k coeffs[k]·shift_k(u) + add``
+  over a zero boundary ring (``coeffs``: the 3x3 weights, row-major;
+  ``add``: a constant field, or None).  One ``fori_loop`` on device; XLA
+  fuses the pad and the shifted adds of a step into one pass, so each
+  step reads and writes the field once."""
+  n, m = u.shape
+
+  def body(_, v):
+    vp = jnp.pad(v, 1)
+    out = jnp.zeros_like(v) if add is None else add
+    for di in range(3):
+      for dj in range(3):
+        c = coeffs[di * 3 + dj]
+        if c:
+          out = out + c * vp[di:di + n, dj:dj + m]
+    return out
+
+  return lax.fori_loop(0, steps, body, u, unroll=max(1, unroll))
+
+
 def simulate_padded(u0, iters: int = 100, alpha: float = 0.1,
-                    unroll: int = 8, interpret: bool = False):
-  """Diffusion steps over PRE-PADDED storage (VERDICT r3 next #3).
+                    unroll: int = 8):
+  """Diffusion steps as one compiled on-device loop (VERDICT r3 next #3).
 
   The whole explicit-Euler step ``u + alpha*lap(u)`` is ONE 3x3 stencil
-  with coefficients ``[[0,a,0],[a,1-4a,a],[0,a,0]]``, so each step is a
-  single streaming pass of the padded-state Pallas kernel
-  (``backend/kernels/stencil_pallas.stencil3x3_padded``) — no per-step
-  ``jnp.pad`` pass, pad ring maintained at zero by buffer aliasing.
-  ``unroll`` steps run inside one jitted program (a big-array fori carry
-  feeding a pallas_call stalls the toolchain — CLAUDE.md), with a host
-  loop over chunks.  Returns the final field as a numpy array."""
-  import jax.numpy as jnp
-
-  from spartan_tpu.backend.kernels import stencil_pallas as _stp
-
+  with coefficients ``[[0,a,0],[a,1-4a,a],[0,a,0]]`` over the zero-padded
+  field (:func:`stencil_sweeps`), ``unroll`` steps per loop trip, in f32.
+  Returns the final field as a numpy array."""
   a = float(alpha)
   coeffs = (0.0, a, 0.0, a, 1.0 - 4.0 * a, a, 0.0, a, 0.0)
-  xp = _stp.to_padded(jnp.asarray(np.asarray(u0), dtype=jnp.float32))
-  buf = jnp.zeros_like(xp)
-  done = 0
-  while done < iters:
-    k = min(unroll, iters - done)
-    xp, buf = _stp.stencil3x3_padded(xp, buf, coeffs, steps=k,
-                                     interpret=interpret)
-    done += k
-  return np.asarray(_stp.from_padded(xp))
+  u = jnp.asarray(np.asarray(u0), dtype=jnp.float32)
+  return np.asarray(stencil_sweeps(u, None, coeffs, int(iters), unroll))
 
 
 def simulate_numpy(u0, iters: int = 100, alpha: float = 0.1):

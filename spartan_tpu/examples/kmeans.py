@@ -33,7 +33,7 @@ def _emit_counts(l, coords):
 
 
 def _onehot(l, k):
-  # one-hot via comparison against an iota row — MXU-friendly segment sums
+  # one-hot via comparison against an iota row: segment sums as a matmul
   classes = jnp.arange(k, dtype=l.dtype)
   return (l[:, None] == classes[None, :]).astype(jnp.result_type(float))
 
@@ -43,8 +43,8 @@ def update_centers(points, labels, k: int, use_matmul: bool = True):
 
   * scatter-add (the reference's shuffle+combiner pattern) — what the
     RPC-era design did per tile;
-  * one-hot matmul segment-sum (default) — TPU-first: the (n,k) one-hot
-    rides the MXU, ~17× faster than XLA's scatter on v5e for large n.
+  * one-hot matmul segment-sum (default): the (n,k) one-hot turns the
+    scatter into a dense matmul.
   """
   d = points.shape[1]
   if use_matmul:
@@ -55,7 +55,9 @@ def update_centers(points, labels, k: int, use_matmul: bool = True):
     sums = sp.shuffle([points, labels], _emit_sums, (k, d), np.add)
     counts = sp.shuffle(labels, _emit_counts, (k,), np.add)
   safe = sp.maximum(counts, 1.0)
-  return sums / sp.expand_dims(safe, 1)
+  # counts accumulate in the reduction dtype (f64 under x64): keep the
+  # centers in the points' dtype so a make_fori carry stays stable
+  return (sums / sp.expand_dims(safe, 1)).astype(points.dtype)
 
 
 def fit(points, k: int, iterations: int = 10, centers=None, seed: int = 0):
@@ -97,8 +99,8 @@ def farthest_init(points, k: int, seed: int = 0) -> np.ndarray:
 
 def fit_fused(points, k: int, iterations: int = 10, centers=None,
               seed: int = 0, init: str = "random"):
-  """Whole Lloyd iteration in ONE compiled on-device loop (the
-  latency-proof TPU pattern; semantics match :func:`fit`).
+  """Whole Lloyd iteration in ONE compiled on-device loop (no
+  per-step host dispatch; semantics match :func:`fit`).
   ``init='farthest'`` seeds with :func:`farthest_init`."""
   import functools
 
@@ -120,7 +122,7 @@ def fit_fused(points, k: int, iterations: int = 10, centers=None,
     def body(_, c):
       dist = (-2.0) * (p @ c.T) + jnp.sum(c * c, axis=1)
       lab = jnp.argmin(dist, axis=1)
-      onehot = _onehot(lab, k).astype(p.dtype)   # MXU segment-sum
+      onehot = _onehot(lab, k).astype(p.dtype)   # matmul segment-sum
       sums = onehot.T @ p
       counts = jnp.sum(onehot, axis=0)
       return sums / jnp.maximum(counts, 1.0)[:, None]

@@ -1,16 +1,15 @@
-"""k-nearest-neighbors classification, MXU-formulated.
+"""k-nearest-neighbors classification, matmul-formulated.
 
 A workload family the reference's sklearn-clone never shipped but its
 users ask for; every stage maps to the framework's fast paths:
 
 - pairwise squared distances as ONE matmul (``‖a−b‖² = ‖a‖² + ‖b‖² −
-  2·a·bᵀ`` — the Gram term runs at MXU speed, vs an O(n·m·d) elementwise
+  2·a·bᵀ`` — the Gram term runs at matmul speed, vs an O(n·m·d) elementwise
   formulation that would be HBM-bound),
 - neighbor selection with ``argpartition`` (O(m) per query, not a full
   sort),
 - majority vote as a one-hot matmul over the neighbor labels (the same
-  segment-sum-on-the-MXU pattern as kmeans.update_centers — 47× over
-  scatter-add on v5e).
+  one-hot matmul segment-sum pattern as kmeans.update_centers).
 
 Queries stay row-sharded end to end (train points replicate like any
 other broadcast operand), so prediction scales with the mesh.

@@ -2,9 +2,10 @@
 
 Reference: ``spartan/examples/lanczos.py`` (SURVEY.md §2.5 broader demo
 set) — repeated distributed matvec + dot-product reductions, with the
-tiny tridiagonal eigenproblem solved on the driver.  TPU shape: each
+tiny tridiagonal eigenproblem solved on the driver.  Device shape: each
 ``A @ v`` / ``v . w`` is a fused sharded contraction (XLA emits the
-cross-shard reduce over ICI); the O(k²) recurrence bookkeeping stays on
+cross-shard reduce over the interconnect); the O(k²) recurrence
+bookkeeping stays on
 the host, as in the reference.
 """
 

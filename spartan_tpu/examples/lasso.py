@@ -4,7 +4,7 @@ compiled on-device loop.
 Reference parity: the reference's regression examples iterate map+reduce
 gradient steps from the driver (SURVEY.md §2.5 linreg/logreg rows); the
 L1 twist adds the soft-threshold prox, which is just another fused
-elementwise map.  TPU shape: `sp.fori_loop` compiles the full FISTA
+elementwise map.  Device shape: `sp.fori_loop` compiles the full FISTA
 iteration (two matvecs + prox + momentum) into a single XLA program —
 no per-step dispatch; the design matrix stays sharded across the mesh
 and the gradient contraction lowers to a psum.

@@ -30,7 +30,7 @@ def fit(X, labels, n_classes: int, alpha: float = 1.0,
   """X: (n, d) nonneg feature counts; labels: (n,) ints.
 
   Returns (log_prior (k,), log_likelihood (k, d)) as SpartanArrays.
-  Per-class aggregation defaults to the one-hot matmul segment-sum (MXU);
+  Per-class aggregation defaults to the one-hot matmul segment-sum;
   ``use_matmul=False`` keeps the reference-style scatter-add shuffle.
   """
   X, labels = sp.lazify(X), sp.lazify(labels)

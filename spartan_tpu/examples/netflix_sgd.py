@@ -1,7 +1,7 @@
 """Netflix-style matrix factorization by minibatch SGD.
 
 Reference: the netflix SGD example (SURVEY.md §2.5) — rating triples
-scattered over tiles, per-rating factor updates.  TPU-native redesign: a
+scattered over tiles, per-rating factor updates.  Redesign for XLA: a
 whole minibatch of (user, item, rating) triples updates U and V in one
 fused region per step — gathers of the touched factor rows, vectorized
 gradient, scatter-add back (the reference's per-rating Python loop becomes
@@ -17,8 +17,9 @@ from spartan_tpu.expr.write import ScatterAssignExpr
 
 
 def _scatter_rows_matmul(dst, idx, updates, n_rows: int):
-  """``dst.at[idx].add(updates)`` as a one-hot matmul (MXU segment-sum;
-  47× over XLA scatter on v5e for modest row counts)."""
+  """``dst.at[idx].add(updates)`` as a one-hot matmul (matmul segment-sum;
+ an XLA
+  scatter-add alternative)."""
   import jax.numpy as jnp
 
   def _oh(l, n):
@@ -33,7 +34,7 @@ def sgd_step(U, V, users, items, ratings, lr: float = 0.05,
              reg: float = 0.02, use_matmul: bool = True):
   """One vectorized SGD step over a batch of rating triples (lazy).
 
-  The factor scatter-back defaults to the one-hot MXU segment-sum;
+  The factor scatter-back defaults to the one-hot matmul segment-sum;
   ``use_matmul=False`` keeps the XLA scatter-add (identical results —
   duplicate indices accumulate in both)."""
   Uu = U[users]                       # (B, k) gather

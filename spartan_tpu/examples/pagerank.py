@@ -6,7 +6,7 @@ sparse adjacency tiles, repeated SpMV + renormalize.  Two paths:
 * ``fit(...)`` — dense column-stochastic matrix (correctness baseline,
   SURVEY.md §7 "dense-fallback path first");
 * ``fit_sparse(...)`` — sparse tiles (:mod:`spartan_tpu.backend.sparse`),
-  the SpMV running through BCOO / the Pallas kernel on TPU.
+  the SpMV auto-routed to the ELL, block-ELL or densified formulation.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def fit(M, iterations: int = 30, damping: float = 0.85):
 def fit_sparse(A_sp, iterations: int = 30, damping: float = 0.85):
   """Sparse power iteration over a SparseArray adjacency (column-stochastic
   already applied) — the framework path: ``spmv_expr`` (which auto-routes
-  block-structured matrices to the MXU block-ELL formulation) composed
+  block-structured matrices to the block-ELL formulation) composed
   with the damping map, compiled once by ``sp.fori_loop``."""
   from spartan_tpu.backend.sparse import spmv_expr
 

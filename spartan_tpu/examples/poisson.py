@@ -43,29 +43,22 @@ def laplacian(u, h: float = 1.0):
           - 4.0 * u) / h**2
 
 
-def solve_jacobi(f, iters: int = 200, h: float = 1.0, unroll: int = 8,
-                 interpret: bool = False):
+def solve_jacobi(f, iters: int = 200, h: float = 1.0, unroll: int = 8):
   """Solve ``∇²u = f`` with ZERO (Dirichlet) boundary by weighted-Jacobi
-  iteration on PRE-PADDED storage (r4): each sweep
-  ``u' = (u_N+u_S+u_E+u_W)/4 - h²f/4`` is ONE streaming pass of the
-  padded stencil kernel with the constant field fused in (``add=``).
-  Complements :func:`solve` (spectral, periodic).  Returns numpy."""
+  iteration (r4): each sweep ``u' = (u_N+u_S+u_E+u_W)/4 - h²f/4`` is one
+  fused pass with the constant field added in
+  (:func:`spartan_tpu.examples.heat.stencil_sweeps`), all sweeps in one
+  compiled on-device loop, in f32.  Complements :func:`solve` (spectral,
+  periodic).  Returns numpy."""
   import jax.numpy as jnp
 
-  from spartan_tpu.backend.kernels import stencil_pallas as _stp
+  from spartan_tpu.examples.heat import stencil_sweeps
 
   fj = jnp.asarray(np.asarray(f), dtype=jnp.float32)
   coeffs = (0.0, 0.25, 0.0, 0.25, 0.0, 0.25, 0.0, 0.25, 0.0)
-  g = _stp.to_padded(-(h * h / 4.0) * fj)
-  xp = _stp.to_padded(jnp.zeros_like(fj))
-  buf = jnp.zeros_like(xp)
-  done = 0
-  while done < iters:
-    k = min(unroll, iters - done)
-    xp, buf = _stp.stencil3x3_padded(xp, buf, coeffs, steps=k,
-                                     interpret=interpret, add=g)
-    done += k
-  return np.asarray(_stp.from_padded(xp))
+  g = -(h * h / 4.0) * fj
+  return np.asarray(stencil_sweeps(jnp.zeros_like(fj), g, coeffs,
+                                   int(iters), unroll))
 
 
 def solve_jacobi_numpy(f, iters: int = 200, h: float = 1.0):

@@ -2,9 +2,10 @@
 
 Reference: ``spartan/examples/qr.py`` (SURVEY.md §2.5 broader demo set)
 — the reference QR-factorizes row-tiled tall matrices for its SSVD
-pipeline.  TPU shape: CholeskyQR2 — the communication-optimal TSQR for
+pipeline.  Device shape: CholeskyQR2 — the communication-optimal TSQR for
 accelerators: the only collective work is two d×d Gram matrices
-(``XᵀX``, a sharded contraction reduced over ICI); the d×d Cholesky
+(``XᵀX``, a sharded contraction reduced over the interconnect); the d×d
+Cholesky
 factors are driver-side numpy, and Q forms as a sharded ``X @ R⁻¹``.
 Two rounds square the single-round loss of orthogonality (CholQR2:
 ‖QᵀQ−I‖ ~ ε instead of ~ ε·κ(X)²).

@@ -1,11 +1,11 @@
 """Lazy expression DAG.
 
-TPU-native rebuild of the reference's expr frontend (reference:
+Rebuild of the reference's expr frontend (reference:
 ``spartan/expr/base.py`` — ``Expr`` base with unique ``expr_id``, deferred
 shape inference, eval cache, operator overloads, ``Val``/``AsArray``/
 container wrappers, ``lazify``/``evaluate``; SURVEY.md §2.1, §3.2).
 
-Differences by design (TPU-first): a node does not know how to execute
+Differences by design (device-first): a node does not know how to execute
 itself per-tile; it knows how to *emit* jax ops into a traced region
 (:meth:`Expr._emit`).  The evaluator partitions the DAG at materialization
 points, compiles each region once with ``jax.jit`` (cached by structural
@@ -149,8 +149,7 @@ def semantic_flags_fingerprint() -> Tuple:
   """Flags that change emitted computations — part of every cache key."""
   return (FLAGS.float64_reductions, FLAGS.opt_affine_reduce,
           FLAGS.sort_method, FLAGS.sort_sample_threshold,
-          FLAGS.dot_precision, FLAGS.use_pallas,
-          FLAGS.sparse_force_onehot, FLAGS.sparse_force_winmm,
+          FLAGS.dot_precision,
           FLAGS.sparse_dense_route, FLAGS.sparse_force_dense,
           FLAGS.fft_pencil, FLAGS.fft_pencil_min_elems)
 
@@ -714,7 +713,7 @@ class EmitCtx:
   """Context threaded through region emission.
 
   ``differentiable=True`` asks emitters to avoid constructs without
-  autodiff rules (Pallas kernels, shard_map fast paths) — the autodiff
+  autodiff rules (shard_map fast paths) — the autodiff
   bridge sets it so ``sp.grad`` works through every node; evaluation
   keeps the fast formulations."""
 

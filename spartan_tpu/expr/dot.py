@@ -1,13 +1,13 @@
 """Distributed matmul / outer product.
 
-TPU-native rebuild of the reference's dot (reference: ``spartan/expr/dot.py``
+Rebuild of the reference's dot (reference: ``spartan/expr/dot.py``
 — per-A-tile kernels fetch matching B blocks and accumulate partial
 products into C via an add-reducer, the "dot shuffle"; SURVEY.md §2.1,
 §3.3).  Here the contraction is one traced ``dot_general``: XLA's SPMD
-partitioner emits the all-gather of B / reduce-scatter of C over ICI that
-the reference hand-rolled as RPC fetches + combiner updates.  MXU targeting
-comes from ``preferred_element_type`` and the AutoTiling pass keeping both
-operands and the result 2-D-sharded over the mesh.
+partitioner emits the all-gather of B / reduce-scatter of C over the
+interconnect that the reference hand-rolled as RPC fetches + combiner
+updates.  Matrix-unit targeting comes from ``preferred_element_type`` and
+the AutoTiling pass keeping both operands and the result 2-D-sharded over the mesh.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from spartan_tpu.expr.base import EmitCtx, Expr, lazify
 def _acc_type(a_dtype, b_dtype):
   out = np.promote_types(a_dtype, b_dtype)
   if out.kind == "f":
-    # f32 accumulation for f32/bf16 inputs (MXU native); f64 when the
+    # f32 accumulation for f32/bf16 inputs; f64 when the
     # reference's float64 semantics are on and x64 is live.
     if FLAGS.float64_reductions:
       return jax.dtypes.canonicalize_dtype(np.promote_types(out, np.float64))
@@ -33,9 +33,19 @@ def _acc_type(a_dtype, b_dtype):
   return jax.dtypes.canonicalize_dtype(out)
 
 
+def _widen(x, acc):
+  """Cast a dot operand up to a 64-bit accumulator dtype.  XLA's GPU
+  backend has no GEMM from f32/bf16 operands to an f64 (or c128) result,
+  so f64 accumulation of narrower operands widens them first (exact)."""
+  acc = jnp.dtype(acc)
+  if acc.kind in "fc" and acc.itemsize >= 8 and x.dtype != acc:
+    return x.astype(acc)
+  return x
+
+
 def _resolve_precision(precision):
-  """Per-call precision, else the --dot_precision flag ('default' = MXU
-  native: bf16 multiply passes for f32 inputs on TPU — fastest; 'highest'
+  """Per-call precision, else the --dot_precision flag ('default' = the
+  backend's fastest: TF32 tensor cores for f32 inputs on a GPU; 'highest'
   = f32-faithful multiplies, the reference's numpy-BLAS accuracy)."""
   p = precision if precision is not None else FLAGS.dot_precision
   return None if p in (None, "default") else p
@@ -53,6 +63,7 @@ class DotExpr(Expr):
   def _emit(self, ctx: EmitCtx, deps: List[Any]):
     a, b = deps
     acc = _acc_type(a.dtype, b.dtype)
+    a, b = _widen(a, acc), _widen(b, acc)
     out = jnp.matmul(a, b, preferred_element_type=acc,
                      precision=_resolve_precision(self.precision)) if (
         a.ndim >= 1 and b.ndim >= 1) else a * b
@@ -87,6 +98,7 @@ class TensorDotExpr(Expr):
   def _emit(self, ctx: EmitCtx, deps: List[Any]):
     a, b = deps
     acc = _acc_type(a.dtype, b.dtype)
+    a, b = _widen(a, acc), _widen(b, acc)
     return jnp.tensordot(a, b, axes=self.axes,
                          preferred_element_type=acc,
                          precision=_resolve_precision(None))
@@ -94,7 +106,7 @@ class TensorDotExpr(Expr):
 
 def dot(a, b, precision=None) -> Expr:
   """Contraction; ``precision`` overrides --dot_precision for this node
-  ('default' | 'high' | 'highest' — TPU f32 matmuls run bf16 passes at
+  ('default' | 'high' | 'highest' — GPU f32 matmuls may run TF32 at
   'default'; numerics-critical algorithms want 'highest').
 
   Sparse operands dispatch to the sparse kernels (the reference's dot

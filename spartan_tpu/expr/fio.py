@@ -1,6 +1,6 @@
 """File IO, checkpointing, and host-side escape hatches.
 
-TPU-native rebuild of the reference's IO layer (reference:
+Rebuild of the reference's IO layer (reference:
 ``spartan/expr/fio.py`` — per-tile pickle/npy save/load, ``from_numpy`` /
 ``from_file`` — and ``spartan/expr/checkpoint.py`` — persisting a
 sub-DAG's result so lineage re-execution restarts from it; SURVEY.md §2.1,

@@ -1,6 +1,6 @@
 """Local-op IR: the fused per-region computation.
 
-TPU-native rebuild of the reference's local-op IR (reference:
+Rebuild of the reference's local-op IR (reference:
 ``spartan/expr/local.py`` — ``LocalExpr``/``LocalInput``/``FnCallExpr``
 describing the fused per-tile kernel that map-fusion builds, with a
 pretty-printer and a compile-to-python/Parakeet backend; SURVEY.md §2.1).

@@ -1,8 +1,8 @@
 """On-device iteration over lazy expressions.
 
 No reference analogue — the reference re-dispatched per-tile kernels every
-iteration (its examples loop on the driver, as ours may).  On TPU the
-whole loop belongs in ONE compiled program: :func:`fori_loop` takes a
+iteration (its examples loop on the driver, as ours may).  On an accelerator
+the whole loop belongs in ONE compiled program: :func:`fori_loop` takes a
 *lazy body* (an Expr-builder over a symbolic carry), compiles body-as-jax
 once, and runs ``lax.fori_loop`` on device — no per-step dispatch, no
 per-step host sync.  This is the generic form of the examples'
@@ -93,7 +93,6 @@ def _has_cached_interior(roots) -> bool:
 
 def _runner_key(tag: str, roots, init_arrs, extra=()):
   from spartan_tpu.backend.evaluator import _opt_flags_fingerprint
-  from spartan_tpu.config import FLAGS
   from spartan_tpu.core.mesh import get_mesh
   from spartan_tpu.expr.base import semantic_flags_fingerprint
   mesh = get_mesh()
@@ -103,7 +102,6 @@ def _runner_key(tag: str, roots, init_arrs, extra=()):
   sigs = tuple(r.signature(memo) for r in roots)
   avals = tuple((tuple(a.shape), str(a.dtype)) for a in init_arrs)
   return (tag, sigs, avals, tuple(extra), semantic_flags_fingerprint(),
-          FLAGS.use_pallas, FLAGS.pallas_interpret,
           _opt_flags_fingerprint(), mesh_key)
 
 

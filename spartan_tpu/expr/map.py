@@ -1,11 +1,11 @@
 """Elementwise / broadcast map over distributed arrays.
 
-TPU-native rebuild of the reference's map op (reference:
+Rebuild of the reference's map op (reference:
 ``spartan/expr/map.py`` — ``MapExpr``/``map``/``map_with_location`` with a
 per-tile ``tile_mapper`` kernel: the largest input chooses the output
 tiling, other inputs are fetched/broadcast per tile; SURVEY.md §2.1, §3.2).
 
-TPU-first: the mapper runs over *global* traced arrays inside the fused
+Device-first: the mapper runs over *global* traced arrays inside the fused
 jitted region — NumPy broadcasting is jnp broadcasting, cross-tile fetches
 of broadcast operands become XLA's sharding propagation, and the
 "largest input chooses tiling" rule survives as the AutoTiling pass copying
@@ -90,7 +90,7 @@ def _numpy_promoting(fn: Callable) -> Callable:
   (value-preserving: int32+float32→float64) instead of jax's lattice
   (int32+float32→float32).  Weak (python-scalar) operands keep jax's
   numpy-compatible weak behavior; exotic dtypes (bfloat16) pass through.
-  Promotions canonicalize, so the TPU x64-off fast path is unchanged."""
+  Promotions canonicalize, so the x64-off fast path is unchanged."""
   name = getattr(fn, "__name__", "")
   int_div = name in ("true_divide", "divide")
 

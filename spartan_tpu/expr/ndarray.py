@@ -1,6 +1,6 @@
 """Lazy array creation.
 
-TPU-native rebuild of the reference's creation exprs (reference:
+Rebuild of the reference's creation exprs (reference:
 ``spartan/expr/ndarray.py`` — ``NdArrayExpr`` lazily allocating a DistArray
 with shape/dtype/tile_hint/reducer; SURVEY.md §2.1).  Creation emits
 ``jnp.full``/``iota``/``jax.random`` ops inside the fused region, so e.g.

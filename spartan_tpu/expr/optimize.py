@@ -1,6 +1,6 @@
 """DAG optimizer.
 
-TPU-native rebuild of the reference's optimizer (reference:
+Rebuild of the reference's optimizer (reference:
 ``spartan/expr/optimize.py`` — flag-gated rewrite passes: ``MapMapFusion``,
 ``ReduceMapFusion``, ``CollapsedCachedExprs``, ``ParakeetGeneration``, and
 the smart/auto-tiling cost-model search — the ATC'15 paper's core
@@ -13,8 +13,8 @@ jitted region, so the passes here optimize what XLA *cannot* see:
   (the region boundary = the reference's eval-cache hits);
 * ``MapMapFusion`` / ``ReduceMapFusion`` — collapse map chains into one
   LocalExpr kernel: fewer nodes → smaller traces, a stable structural
-  signature for the jit cache, and the fused kernel is what the Pallas
-  backend lowers directly;
+  signature for the jit cache, and the fused kernel lowers as one XLA
+  fusion;
 * ``AutoTiling`` ("smart tiling") — choose PartitionSpecs for region
   *outputs* to minimize resharding collectives between regions; intra-
   region propagation is XLA's job, the boundary layout decision is ours.
@@ -210,8 +210,8 @@ class ReduceMapFusion:
 class ConstFoldCreations:
   """Replace broadcast-neutral fill-creations feeding fused kernels with
   scalar leaves: ``ones(shape) + b`` → ``1.0 + b`` when ``b`` already
-  carries the shape.  Shrinks traces and unlocks the Pallas
-  fused-reduce path (scalars ride SMEM; a full ones-array can't)."""
+  carries the shape.  Shrinks traces and lets the affine
+  reduce rewrite see a scalar where a full ones-array stood."""
 
   def run(self, root: Expr) -> Expr:
     import numpy as np_mod

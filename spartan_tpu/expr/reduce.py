@@ -1,17 +1,17 @@
 """Axis reductions with reference accumulation semantics.
 
-TPU-native rebuild of the reference's reduce op (reference:
+Rebuild of the reference's reduce op (reference:
 ``spartan/expr/reduce.py`` — per-tile local reduce + combiner-merge into
 output tiles, with dtype promotion / float64 accumulation; SURVEY.md §2.1,
 §3.2).  The per-tile/combiner split collapses into a single traced
 ``jnp.<op>(x, axis, dtype=acc)`` — XLA's SPMD partitioner emits the
-cross-shard combine (psum / reduce-scatter over ICI) that the reference
-implemented as ``Tile.merge`` RPC updates.
+cross-shard combine (psum / reduce-scatter over the interconnect) that
+the reference implemented as ``Tile.merge`` RPC updates.
 
 Accumulation dtype rules (``dtype_for_reduction`` in the reference):
 float inputs accumulate (and return) float64, integer/bool inputs
 accumulate in the platform default int — gated by
-``FLAGS.float64_reductions`` so the TPU fast path can stay in f32.
+``FLAGS.float64_reductions`` so a fast path can stay in f32.
 """
 
 from __future__ import annotations
@@ -84,10 +84,9 @@ class ReduceExpr(Expr):
     """Strength-reduce ``sum(a·x + b)`` to ``a·sum(x) + b·count``.
 
     The fused elementwise chain of config-1-style workloads is affine in
-    its one big operand; summation is linear, so the per-element VPU work
-    (which caps the naive chain at ~45 % of HBM roofline — it is
-    compute-bound, not bandwidth-bound) collapses into a scalar epilogue
-    around a *pure* sum that runs at full memory speed.  Flag-gated
+    its one big operand; summation is linear, so the per-element work
+    collapses into a scalar epilogue around a *pure* sum that runs at
+    memory speed.  Flag-gated
     (``opt_affine_reduce``); float64 accumulation semantics preserved
     (both forms accumulate in the promoted dtype).
     """
@@ -128,57 +127,13 @@ class ReduceExpr(Expr):
     m = jnp.mean(x, axis=self.axis, dtype=acc, keepdims=self.keepdims)
     return a * m + b
 
-  def _try_pallas_full_sum(self, deps: List[Any]):
-    """Lower a full ``sum`` over one big operand (+ scalars) to the Pallas
-    fused elementwise+reduce kernel (95 % of HBM roofline on TPU vs ~50 %
-    for XLA's fused reduce).  Returns None when conditions don't hold."""
-    from spartan_tpu.config import FLAGS
-    if self.op != "sum" or self.axis is not None or not FLAGS.use_pallas:
-      return None
-    interpret = bool(FLAGS.pallas_interpret)
-    if jax.default_backend() == "cpu" and not interpret:
-      return None
-    big = [k for k, d in enumerate(deps) if getattr(d, "ndim", 0) >= 1]
-    if len(big) != 1:
-      return None
-    main = deps[big[0]]
-    if main.ndim > 2 or main.dtype not in (jnp.float32, jnp.bfloat16,
-                                           jnp.float16):
-      return None
-    if any(deps[k].ndim != 0 for k in range(len(deps)) if k != big[0]):
-      return None
-    acc = _canon(self.out_dtype or dtype_for_reduction(main.dtype))
-    if np.dtype(acc).kind != "f":
-      return None
-    scal_idx = [k for k in range(len(deps)) if k != big[0]]
-    local_op = self.local_op
-
-    def f(block, *svals):
-      if local_op is None:
-        return block
-      vals: List[Any] = [None] * len(deps)
-      vals[big[0]] = block
-      for k, v in zip(scal_idx, svals):
-        vals[k] = v
-      return local_op.evaluate(vals)
-
-    from spartan_tpu.backend.kernels import fused_reduce
-    try:
-      return fused_reduce.fused_sum(
-          main, f, scalars=[deps[k] for k in scal_idx], acc_dtype=acc,
-          interpret=interpret)
-    except Exception:
-      return None  # trace-time rejection → XLA path
-
   def _emit(self, ctx: EmitCtx, deps: List[Any]):
     if not ctx.abstract:
       fast = self._try_affine_rewrite(deps)
       if fast is not None:
         return fast
-      if not ctx.differentiable:   # pallas kernels have no autodiff rule
-        fast = self._try_pallas_full_sum(deps)
-        if fast is not None:
-          return fast
+    # the fused pre-map and the reduction are traced together, so XLA
+    # emits one pass over the operand for any elementwise chain
     x = self._value(deps)
     op, axis, keepdims = self.op, self.axis, self.keepdims
     if self.out_dtype is not None:
@@ -300,7 +255,7 @@ class CustomReduceExpr(Expr):
   """User-supplied reduction (reference ``expr.reduce`` with
   ``local_reduce_fn``/``accumulate_fn``; reference: spartan/expr/reduce.py).
 
-  TPU-first semantics: ``fn(x, axis=axis, **fn_kw)`` runs over the
+  SPMD semantics: ``fn(x, axis=axis, **fn_kw)`` runs over the
   *global* traced array inside the fused region — XLA's partitioner
   emits the cross-shard combine, so the reference's separate
   ``accumulate_fn`` (tile-partial merge) is only a consistency contract:

@@ -1,7 +1,7 @@
 """Rematerialization boundary for fused regions.
 
-No reference analogue (the reference materializes every tile op); on TPU
-the memory/FLOPs trade is first-class: ``remat(expr)`` wraps the
+No reference analogue (the reference materializes every tile op); on an
+accelerator the memory/FLOPs trade is first-class: ``remat(expr)`` wraps the
 sub-DAG's emission in ``jax.checkpoint``, so reverse-mode autodiff
 (``spartan_tpu.autodiff``) recomputes the region's intermediates instead
 of storing them — the standard activation-checkpointing pattern, applied

@@ -1,6 +1,6 @@
 """Lazy reshape / ravel / transpose / concatenate.
 
-TPU-native rebuild of the reference's shape ops (reference:
+Rebuild of the reference's shape ops (reference:
 ``spartan/expr/reshape.py`` / ``transpose.py`` — lazy reshape as a
 ravelled-offset remap and transpose as an extent transpose + shuffle;
 SURVEY.md §2.1).  Both become single traced XLA ops: a cross-shard reshape

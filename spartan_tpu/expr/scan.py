@@ -1,6 +1,6 @@
 """Prefix scans.
 
-TPU-native rebuild of the reference's scan op (reference:
+Rebuild of the reference's scan op (reference:
 ``spartan/expr/scan.py`` — per-tile local scan, cross-tile carry, offset
 fix-up map; SURVEY.md §2.1).  The three-phase tile algorithm collapses into
 one traced ``jax.lax.associative_scan`` / ``jnp.cumsum`` — XLA partitions

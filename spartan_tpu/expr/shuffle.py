@@ -1,11 +1,11 @@
 """Scatter-with-combiner: the generic cross-tile data-movement escape hatch.
 
-TPU-native rebuild of the reference's shuffle op (reference:
+Rebuild of the reference's shuffle op (reference:
 ``spartan/expr/shuffle.py`` — a per-tile fn emitting ``(extent, data)``
 updates merged into a target array with a reducer, used by transpose /
 sort / pagerank-style scatters; SURVEY.md §2.1).
 
-TPU-first redesign: instead of per-tile Python emitting dynamic extents
+Device-first redesign: instead of per-tile Python emitting dynamic extents
 over RPC, the kernel is traced over the *global* array plus coordinate
 grids and returns ``(indices, values)``; the op lowers to one XLA scatter
 with the combiner (``target.at[indices].add/max/min/mul``), whose

@@ -1,6 +1,6 @@
 """Lazy basic slicing and fancy/boolean indexing.
 
-TPU-native rebuild of the reference's slicing layer (reference:
+Rebuild of the reference's slicing layer (reference:
 ``spartan/expr/slice.py`` — lazy ``SliceExpr`` via extent intersection, no
 copy until forced — plus the fancy/boolean indexing module; SURVEY.md
 §2.1, §3.4).  Basic slices and integer-array gathers stay inside the

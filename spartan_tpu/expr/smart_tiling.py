@@ -1,6 +1,6 @@
 """Smart tiling: cost-model search over array placements.
 
-TPU-native rebuild of the reference's headline contribution (reference:
+Rebuild of the reference's headline contribution (reference:
 ``spartan/expr/optimize.py`` AutoTiling — the ATC'15 "smart tiling" pass
 that searches per-array tiling choices to minimize bytes moved over the
 network; SURVEY.md §2.1, §6).
@@ -10,7 +10,7 @@ jitted region, so the decisions that still belong to the framework are
 (a) how leaf arrays are laid out when first placed on the mesh and (b) the
 ``out_shardings`` at region boundaries.  This module runs a bottom-up
 dynamic program over a small candidate-spec set per node, charging each op
-the ICI bytes XLA would have to move given its children's layouts
+the interconnect bytes XLA would have to move given its children's layouts
 (all-gather for broadcast/replication, all-to-all for re-tiling,
 reduce-scatter/psum for contractions and combiner updates), and returns
 the argmin leaf layouts + expected cost.
@@ -150,7 +150,8 @@ def candidate_specs(shape, mesh) -> List[PartitionSpec]:
 # every comm-only comparison while making every chip do the full work.
 # Charge each op β·work_bytes/util, where util is the number of devices
 # the op's work is partitioned over and β ≈ 0.1 reflects that processing
-# a byte locally is ~10× cheaper than moving it across ICI.  Replication
+# a byte locally is ~10× cheaper than moving it across the
+# interconnect.  Replication
 # still wins for small arrays (work term vanishes with size) — the
 # r2 "replicate small leaves" insight falls out of the model for free.
 _COMPUTE_WEIGHT = 0.1
@@ -170,7 +171,7 @@ def _spec_util(spec: PartitionSpec, ndim: int, mesh) -> int:
 
 def reshard_bytes(shape, dtype, src: PartitionSpec, dst: PartitionSpec,
                   mesh) -> float:
-  """Estimated ICI bytes to move an array from ``src`` to ``dst`` layout.
+  """Estimated interconnect bytes to move an array from ``src`` to ``dst`` layout.
 
   Model (global bytes crossing links, relative scale is what matters):
     * identical layouts → 0

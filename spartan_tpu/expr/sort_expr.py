@@ -1,6 +1,6 @@
 """Distributed sort / percentile / median.
 
-TPU-native rebuild of the reference's sort module (reference:
+Rebuild of the reference's sort module (reference:
 ``spartan/expr/sort.py`` — sample-based distributed sort via shuffle;
 SURVEY.md §2.1).  Two lowerings, picked by ``--sort_method``:
 

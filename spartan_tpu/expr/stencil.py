@@ -1,13 +1,13 @@
 """2-D stencil / convolution / pooling with cross-tile halos.
 
-TPU-native rebuild of the reference's stencil module (reference:
+Rebuild of the reference's stencil module (reference:
 ``spartan/expr/stencil.py`` — 2-D stencil/convolution/maxpool whose
 per-tile kernels fetch halo borders from neighbor tiles, used by the CNN
 example; SURVEY.md §2.1, §2.3).  Two execution paths:
 
 * the default traced path: ``lax.conv_general_dilated`` /
   ``lax.reduce_window`` — when the spatial dims are sharded, XLA's SPMD
-  partitioner inserts the halo exchanges on ICI automatically;
+  partitioner inserts the halo exchanges on the interconnect automatically;
 * an explicit ``shard_map`` + ``lax.ppermute`` ring halo exchange
   (``spartan_tpu.parallel.halo``) — the CP/ring-attention primitive applied
   to stencils, for when you want the comm schedule in your own hands.
@@ -44,9 +44,8 @@ class StencilExpr(Expr):
     x, w = deps
     acc = jnp.promote_types(x.dtype, w.dtype)
     # Single-channel stride-1 stencils (the classic Laplacian/blur case):
-    # XLA's conv lowering runs at ~7.5 GB/s on TPU for O=I=1 — 100x off
-    # the HBM roofline (measured, tools/stencil_probe_r3.py).  The
-    # shifted-add formulation hits 136-260 GB/s, fuses with neighbors,
+    # a general conv lowering is a poor fit for O=I=1: the shifted-add
+    # formulation is one elementwise pass, fuses with neighbors,
     # differentiates through both operands, and SPMD-partitions (static
     # slices of a sharded array get halo exchanges automatically).
     if (self.stride == (1, 1) and w.ndim == 4

@@ -1,6 +1,6 @@
 """In-place-style region writes (functional under the hood).
 
-TPU-native rebuild of the reference's write/assign exprs (reference:
+Rebuild of the reference's write/assign exprs (reference:
 ``spartan/expr/write_array.py`` / ``assign.py`` — ``write(dst_region ←
 fn(src))`` region updates and scatter-assign; SURVEY.md §2.1).  The update
 is a traced functional ``dst.at[region].<op>(src)`` producing a new array;

@@ -1,4 +1,4 @@
-"""``sp.integrate`` — the scipy.integrate surface, TPU-first.
+"""``sp.integrate`` — the scipy.integrate surface, on device.
 
 The reference has no integration module (SURVEY.md §2.5 — this is
 beyond-parity surface, built the sp.optimize way): the ODE initial-value

@@ -1,16 +1,16 @@
-"""``sp.interpolate`` — the scipy.interpolate surface, TPU-first.
+"""``sp.interpolate`` — the scipy.interpolate surface, on device.
 
 Piecewise-polynomial evaluation is the canonical gather+FLOP device
 workload: ``searchsorted`` interval lookup -> coefficient gather ->
 static-degree Horner (power basis) or de Casteljau (Bernstein), all
 inside one ``sp.map`` kernel, so a million-point spline evaluation is
-one fused HBM pass.  Construction is device too where the algorithm
+one fused memory pass.  Construction is device too where the algorithm
 is parallel: ``CubicSpline`` solves its tridiagonal system with a
 Thomas ``lax.scan`` (the lfilter IIR-recurrence pattern; periodic via
 Sherman-Morrison on two scans), Pchip/Akima derivative estimates are
 branch-free ``where`` selects, and B-spline interpolation/LSQ fitting
-assemble their collocation/design matrices on device and solve on the
-MXU.  ``RBFInterpolator`` is a pure MXU workload (pairwise kernel
+assemble their collocation/design matrices on device and solve with
+matmuls.  ``RBFInterpolator`` is a pure matmul workload (pairwise kernel
 matrices + dense solve).  Evaluation of host-fitted splines (FITPACK
 ``splrep``/``UnivariateSpline``) runs on device through the same de
 Boor kernel, so only the one-shot fit leaves the chip.
@@ -161,7 +161,7 @@ def _thomas(dl, d, du, b):
 
   dl/d/du: (n,) sub/main/super diagonals (dl[0] and du[-1] ignored);
   b: (n, *trailing).  Differentiable; O(n) sequential but each step is
-  a tiny fused VPU op — the TPU-honest answer for spline systems."""
+  a tiny fused elementwise op — the honest device answer for spline systems."""
   d = _f(d)
   b = _f(b)
   dl = _f(dl)
@@ -1298,7 +1298,7 @@ def _parse_spline_bc(bc_type, k):
 def make_interp_spline(x, y, k=3, t=None, bc_type=None, axis=0,
                        check_finite=True):
   """Interpolating B-spline: device collocation matrix (vmapped
-  one-hot de Boor basis columns) + dense MXU solve.  For large n the
+  one-hot de Boor basis columns) + dense matmul-based solve.  For large n the
   O(n^3) dense solve is the tradeoff — use CubicSpline (Thomas scan,
   O(n)) for big 1-D problems."""
   xc, Y, axis, flip = _canonical_y(x, y, axis)
@@ -1385,7 +1385,7 @@ def make_interp_spline(x, y, k=3, t=None, bc_type=None, axis=0,
 
 def make_lsq_spline(x, y, t, k=3, w=None, axis=0, check_finite=True):
   """Least-squares B-spline with fixed knots: device design matrix +
-  normal-equations solve on the MXU."""
+  normal-equations solve on the matrix units."""
   xc, Y, axis, flip = _canonical_y(x, y, axis)
   tv = _asfloat_np(t)
   k = int(k)
@@ -1705,12 +1705,12 @@ class LSQUnivariateSpline(UnivariateSpline):
 
 # ---------------------------------------------------------------------
 # rectangular bivariate splines: host regrid fit, device tensor eval
-# (two basis matmuls on the MXU: Bx @ C @ By^T)
+# (two basis matmuls on the matrix units: Bx @ C @ By^T)
 # ---------------------------------------------------------------------
 
 class RectBivariateSpline:
   """scipy RectBivariateSpline — FITPACK regrid fit on host; every
-  evaluation is two device basis matrices + MXU matmuls."""
+  evaluation is two device basis matrices + matmuls."""
 
   def __init__(self, x, y, z, bbox=(None,) * 4, kx=3, ky=3, s=0):
     _host_notice("RectBivariateSpline")
@@ -1864,7 +1864,7 @@ class RegularGridInterpolator:
   2^d-corner gather kernel; 'slinear'/'cubic'/'quintic' precompute the
   tensor-product B-spline coefficient tensor on device (per-axis
   collocation solves) and evaluate with per-axis basis matrices folded
-  on the MXU.  'pchip' is the host boundary (nonlinear per-axis
+  on the matrix units.  'pchip' is the host boundary (nonlinear per-axis
   estimates, recursive evaluation)."""
 
   _SPLINE_K = {"slinear": 1, "cubic": 3, "quintic": 5}
@@ -2043,7 +2043,7 @@ def interpn(points, values, xi, method="linear", bounds_error=True,
 # =====================================================================
 
 class NearestNDInterpolator:
-  """Nearest-neighbour scattered interpolation: one MXU pairwise-
+  """Nearest-neighbour scattered interpolation: one matmul pairwise-
   distance pass + argmin gather (the sp.spatial KDTree brute pattern)."""
 
   def __init__(self, x, y, rescale=False, tree_options=None):
@@ -2081,7 +2081,7 @@ class NearestNDInterpolator:
 
 def griddata(points, values, xi, method="linear", fill_value=np.nan,
              rescale=False):
-  """Scattered-data interpolation: 'nearest' is the device MXU path;
+  """Scattered-data interpolation: 'nearest' is the device matmul path;
   'linear'/'cubic' are the Qhull host boundary (simplex walks)."""
   if method == "nearest":
     interp = NearestNDInterpolator(
@@ -2104,7 +2104,7 @@ def griddata(points, values, xi, method="linear", fill_value=np.nan,
 
 
 # =====================================================================
-# RBF interpolation (pure MXU: kernel matrices + dense solve)
+# RBF interpolation (pure matmul: kernel matrices + dense solve)
 # =====================================================================
 
 _RBF_KERNELS = {
@@ -2152,7 +2152,7 @@ def _pdist_mat(a, b):
 
 class RBFInterpolator:
   """scipy RBFInterpolator, fully on device: the (n+p)×(n+p) saddle
-  system assembles from one MXU pairwise-distance pass and solves with
+  system assembles from one matmul pairwise-distance pass and solves with
   ``jnp.linalg.solve``; evaluation is one cross-kernel matmul.
   ``neighbors=`` (local stencils) is the host boundary."""
 
@@ -2253,7 +2253,7 @@ class RBFInterpolator:
 
 
 class Rbf:
-  """Legacy scipy Rbf — same MXU assembly/solve; default epsilon is
+  """Legacy scipy Rbf — same matmul assembly/solve; default epsilon is
   the scipy average-distance heuristic computed on device."""
 
   _KERNELS = {
@@ -2647,7 +2647,7 @@ class NdPPoly:
 
 class NdBSpline:
   """N-D tensor-product B-spline evaluation: per-axis dense basis
-  matrices (vmapped one-hot de Boor) folded on the MXU."""
+  matrices (vmapped one-hot de Boor) folded on the matrix units."""
 
   def __init__(self, t, c, k, *, extrapolate=None):
     self.t = tuple(np.asarray(_asfloat_np(ta)) for ta in t)

@@ -166,7 +166,7 @@ def svd_lowrank(X, k: int = 6, iterations: int = 20, seed: int = 0):
 
 # -- full np.linalg surface (r3) --------------------------------------------
 #
-# Dense factorizations as LAZY exprs over XLA's native TPU lowerings
+# Dense factorizations as LAZY exprs over XLA's native device lowerings
 # (eigh/svd/LU all compile to on-device kernels).  These are the
 # np.linalg convenience entry points at single-factorization scale; the
 # sharded/blocked variants above (blocked cholesky, TSQR, Lanczos, SSVD,
@@ -307,7 +307,7 @@ def _eig_stacked(a):
 def eig(A):
   """General (non-symmetric) eigendecomposition ``(w, v)``.
 
-  XLA:TPU has no nonsymmetric-eig kernel, so this is an eager host
+  XLA has no nonsymmetric-eig kernel, so this is an eager host
   boundary (``np.linalg.eig``) — the same NotShapeable-style convention
   the framework uses for data-dependent shapes.  Complex outputs.  One
   host factorization: w and v are slices of a single stacked result."""
@@ -327,7 +327,7 @@ def _eig_host_notice(name):
   from spartan_tpu.util import log_info
   log_info(
       "sp.linalg.%s: general (non-symmetric) eigendecomposition has no "
-      "XLA:TPU kernel — this evaluates EAGERLY on the host "
+      "XLA kernel — this evaluates EAGERLY on the host "
       "(np.linalg.%s), breaking the lazy chain at this node. For "
       "symmetric/Hermitian operands use sp.linalg.eigh (on-device).",
       name, name)

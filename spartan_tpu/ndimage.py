@@ -1,7 +1,7 @@
-"""``sp.ndimage`` — the scipy.ndimage surface, TPU-first.
+"""``sp.ndimage`` — the scipy.ndimage surface, on device.
 
 The reference has no image module (beyond-parity surface, the
-sp.signal pattern).  N-D image work is what the VPU/MXU were built
+sp.signal pattern).  N-D image work is what the vector and matrix units were built
 for, so the data-plane core runs as lazy device kernels:
 
 * **filters** — boundary handling is one ``jnp.pad`` (every ndimage
@@ -16,8 +16,8 @@ for, so the data-plane core runs as lazy device kernels:
   geodesic flood fills: ONE ``lax.while_loop`` of masked dilations
   with a changed-flag stop (the classic iterate-until-stable made
   compiler-friendly).
-* **measurements** — per-label reductions ride the one-hot MXU
-  segment-sum idiom (measured 47x over scatter on v5e); ``label`` is
+* **measurements** — per-label reductions ride the one-hot matmul
+  segment-sum idiom; ``label`` is
   min-label propagation in a fused while_loop (the csgraph
   connected-components pattern) with a host renumber pass.
 * **fourier filters** — host-computed spectral multipliers applied
@@ -154,7 +154,7 @@ def _corr_nd(input, weights, mode, cval, origin, flip: bool):
 def correlate(input, weights, output=None, mode: str = "reflect",
               cval: float = 0.0, origin=0):
   """N-D correlation — one boundary pad + XLA ``conv_general_dilated``
-  (MXU-tiled for 2-D)."""
+  (matmul-tiled for 2-D)."""
   del output
   return _corr_nd(input, weights, mode, cval, origin, flip=False)
 
@@ -819,7 +819,7 @@ def binary_hit_or_miss(input, structure1=None, structure2=None,
 
 
 # ---------------------------------------------------------------------
-# label + per-label measurements (one-hot MXU segment reductions)
+# label + per-label measurements (one-hot matmul segment reductions)
 # ---------------------------------------------------------------------
 
 def label(input, structure=None, output=None):
@@ -873,7 +873,7 @@ def _index_arr(index, labels):
 
 def _label_sums(input, labels, idx):
   """Per-label sums via ONE one-hot matmul (flattened input @ one-hot
-  membership) — the MXU segment-sum idiom."""
+  membership) — the matmul segment-sum idiom."""
   X = sp.lazify(input)
   L = sp.lazify(labels)
 
@@ -892,7 +892,7 @@ def _label_sums(input, labels, idx):
 
 
 def sum_labels(input, labels=None, index=None):
-  """Per-label sums — one one-hot MXU matmul; no labels = plain sum."""
+  """Per-label sums — one one-hot matmul; no labels = plain sum."""
   X = sp.lazify(input)
   if labels is None:
     return float(np.asarray(sp.sum(X).glom()))

@@ -5,7 +5,7 @@ SURVEY.md §2.5); this is beyond-parity surface built the sparse_linalg
 way: every iterative solver is ONE compiled ``jax.lax.while_loop`` (no
 per-iteration host syncs), Jacobians/Hessians come from the autodiff
 bridge (``jax.jacfwd`` over the lowered DAG), and the linear algebra in
-each step (normal equations, Newton solves) runs on the MXU.
+each step (normal equations, Newton solves) runs on the matrix units.
 
 Objective/residual functions may be either
 
@@ -162,7 +162,7 @@ def least_squares(fun, x0, args=(), method: str = None,
   ``x - clip(x - g, lo, hi)`` — the KKT measure scipy's TRF reports.
   As the damping grows the step tends to a short projected-gradient
   step, so stalls at active bounds resolve toward the constrained
-  optimum.  Parameter counts are assumed MXU-friendly-small (the J^T J
+  optimum.  Parameter counts are assumed matmul-friendly-small (the J^T J
   normal equations are formed explicitly).
 
   Returns an :class:`OptimizeResult` with scipy's fields (``x``,
@@ -308,7 +308,7 @@ _ALPHAS = (1.0, 0.5, 0.25, 0.125)
 def root(fun, x0, args=(), method: str = "newton", tol: float = 1e-10,
          maxiter: int = 100):
   """Vector root find: damped Newton with a 4-point backtracking line
-  search, fused into one while_loop (``jacfwd`` Jacobian + MXU solve
+  search, fused into one while_loop (``jacfwd`` Jacobian + matmul-based solve
   per step).  scipy's 'hybr' (MINPACK dogleg) is accepted as an alias —
   same fixed points, different globalization."""
   import jax
@@ -1217,7 +1217,7 @@ def fmin_bfgs(f, x0, fprime=None, args=(), gtol: float = 1e-5, **kw):
 
 def fmin_cg(f, x0, fprime=None, args=(), gtol: float = 1e-5, **kw):
   """Nonlinear-CG front-end — routed to the fused BFGS loop (same
-  smooth-minimization contract; BFGS dominates CG at the MXU-friendly
+  smooth-minimization contract; BFGS dominates CG at the matmul-friendly
   parameter counts these front-ends see)."""
   del fprime
   res = minimize(f, x0, args=args, method="bfgs", tol=gtol)
@@ -1389,7 +1389,7 @@ def differential_evolution(func, bounds, args=(), strategy="best1bin",
   """Differential evolution ON DEVICE: the whole population rides one
   fused while_loop (generation = vectorized best1bin mutation +
   binomial crossover + a vmapped batch evaluation of every trial —
-  population-parallel work the VPU/MXU eats), with scipy's
+  population-parallel work the vector and matrix units eats), with scipy's
   std(f) <= atol + tol*|mean(f)| stop.  ``polish=True`` finishes with
   the fused projected-Newton box solver."""
   import jax

@@ -15,7 +15,7 @@ in our hands:
   applied here to stencil halos since the reference has no attention;
 * :func:`halo_exchange` — pad each shard with neighbor boundary rows
   (zero-filled at array edges) — the reference stencil's neighbor-tile
-  fetch, as one ICI ring step;
+  fetch, as one interconnect ring step;
 * :func:`all_to_all_retile` — switch which dim is sharded in one
   ``lax.all_to_all`` (the Ulysses primitive; reference analogue:
   transpose-shuffles).

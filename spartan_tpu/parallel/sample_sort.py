@@ -1,6 +1,6 @@
 """Distributed sample sort + exact distributed selection over the mesh.
 
-TPU-native rebuild of the reference's sample-based distributed sort
+Rebuild of the reference's sample-based distributed sort
 (reference: ``spartan/expr/sort.py`` — sample splitters, then a shuffle
 moving each partition range to its owning worker; SURVEY.md §2.1 sort
 row).  The rebuild replaces statistical sample splitters + an RPC shuffle
@@ -16,8 +16,8 @@ with an **exact** formulation that keeps every shape static for XLA:
    ``all_gather`` of per-device tie counts), so bucket j holds *exactly*
    n/p elements — output shards are perfectly even and no second
    redistribution is needed;
-4. buckets are exchanged with ``lax.ragged_all_to_all`` (TPU/GPU: each
-   device moves exactly its n/p elements over ICI) or a dense padded
+4. buckets are exchanged with ``lax.ragged_all_to_all`` (GPU: each
+   device moves exactly its n/p elements over the interconnect) or a dense padded
    ``lax.all_to_all`` (CPU meshes — XLA:CPU has no ragged thunk); each
    device then sorts its received n/p elements locally.
 
@@ -193,7 +193,7 @@ def _exchange_dense(arrays, s, p: int, ax_arg, m: int):
 
 
 def _exchange_ragged(arrays, s, p: int, axes, ax_arg, m: int, rank):
-  """TPU/GPU path: buckets are contiguous in the locally sorted shard, so
+  """GPU path: buckets are contiguous in the locally sorted shard, so
   the split positions ARE the ragged offsets; each device sends and
   receives exactly m elements."""
   sizes = (s[1:] - s[:-1]).astype(jnp.int32)
@@ -261,7 +261,7 @@ def _pick_exchange(mesh: Mesh, exchange: str) -> str:
   if exchange != "auto":
     return exchange
   platform = mesh.devices.flat[0].platform
-  return "ragged" if platform in ("tpu", "gpu") else "dense"
+  return "ragged" if platform == "gpu" else "dense"
 
 
 def sample_sort_traced(x, mesh: Optional[Mesh] = None, kind: str = "sort",

@@ -1,6 +1,6 @@
 """Tracing / profiling hooks.
 
-TPU-native rebuild of the reference's profiling (reference: flag-gated
+Rebuild of the reference's profiling (reference: flag-gated
 cProfile dumps ``--profile_kernels`` / ``--profile_master``, ``util.Timer``
 helpers in eval paths; SURVEY.md §5).  Structured device tracing replaces
 host cProfile: ``trace()`` wraps ``jax.profiler`` (XPlane/TensorBoard),

@@ -1,5 +1,5 @@
 """Sparse construction & manipulation (the ``scipy.sparse`` builder
-surface), TPU-first.
+surface), on device.
 
 Reference: the reference's sparse tiles ARE scipy matrices
 (``spartan/sparse/``, SURVEY.md §2.1/§2.2), so its users build graphs
@@ -8,7 +8,7 @@ them to sparse workloads (config 5 PageRank).  This module provides
 that surface over :class:`~spartan_tpu.backend.sparse.SparseArray`
 (padded-ELL device layout).
 
-TPU-first shape: every structural composition that is expressible as a
+Device-first shape: every structural composition that is expressible as a
 static, vectorized transform of the ELL ``(rows, width)`` tiles runs
 ON DEVICE — ``kron`` is one broadcasted outer product of the two ELL
 tile pairs, ``hstack``/``vstack``/``block_diag``/``bmat`` are shifted
@@ -405,8 +405,8 @@ def rand(m: int, n: int, density: float = 0.01, format=None,
 # ---------------------------------------------------------------------------
 # scipy format constructors + predicates (r5 parity sweep).
 #
-# The DEVICE layout is always padded ELL (one format, chosen for the TPU
-# gather/MXU paths); these constructors accept every input form their
+# The DEVICE layout is always padded ELL (one format, chosen for the
+# vectorized gather paths); these constructors accept every input form their
 # scipy namesakes do (dense, sparse, (M,N), (data,(row,col)),
 # (data,indices,indptr), (data,offsets)) by delegating the PARSING to
 # scipy's own constructor (host-side one-shot ingest, the documented

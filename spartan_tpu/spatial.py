@@ -1,11 +1,11 @@
 """``sp.spatial`` — the scipy.spatial surface.
 
-TPU-first design: a k-d tree is a pointer-chasing structure the MXU
-cannot see; on TPU the speed-of-light neighbor query is the dense
+Device-first design: a k-d tree is a pointer-chasing structure the matrix units
+cannot see; on device the speed-of-light neighbor query is the dense
 pairwise-distance tile (one bf16/f32 matmul + rank-1 corrections, the
 examples/kmeans pattern) followed by an on-chip ``top_k`` / masked
 reduction.  ``KDTree``/``cKDTree`` therefore keep the scipy API but
-lower every query to that brute-force MXU kernel — ``query`` and
+lower every query to that brute-force matmul kernel — ``query`` and
 ``count_neighbors`` stay entirely on device (top-k / sorted
 searchsorted), while the inherently ragged outputs
 (``query_ball_point`` lists, ``query_pairs`` sets) compute the
@@ -14,7 +14,7 @@ boolean mask on device and extract indices on the host.
 
 Device functions: ``distance_matrix``, ``minkowski_distance(_p)``,
 ``procrustes`` (SVD Kabsch), ``geometric_slerp``.  Submodules:
-``distance`` (MXU cdist/pdist) and ``transform`` (quaternion
+``distance`` (matmul cdist/pdist) and ``transform`` (quaternion
 Rotation).  Host boundary: the Qhull family (ConvexHull/Delaunay/
 Voronoi/...) — sequential exact geometric algorithms scipy owns; they
 re-export whole (the SuperLU convention) and accept lazy Exprs via
@@ -61,7 +61,7 @@ def _host_notice(name):
 # ---------------------------------------------------------------------
 
 def _pair_minkowski(a, b, p, box=None):
-  """(n, d), (m, d) -> (n, m).  p=2 without boxsize rides the MXU
+  """(n, d), (m, d) -> (n, m).  p=2 without boxsize rides the matrix units
   (|a|^2+|b|^2-2ab); everything else is the broadcast reduction XLA
   tiles without materializing (n, m, d)."""
   if box is None and p == 2.0:
@@ -79,7 +79,7 @@ def _pair_minkowski(a, b, p, box=None):
 
 
 class KDTree:
-  """scipy.spatial.KDTree API over brute-force MXU pairwise tiles.
+  """scipy.spatial.KDTree API over brute-force matmul pairwise tiles.
 
   ``leafsize``/``compact_nodes``/``balanced_tree`` are accepted and
   ignored (there is no tree).  ``boxsize`` (toroidal topology) is
@@ -116,7 +116,7 @@ class KDTree:
 
   def query(self, x, k=1, eps=0, p=2.0, distance_upper_bound=np.inf,
             workers=1):
-    """k nearest neighbors — one device kernel: MXU distance tile +
+    """k nearest neighbors — one device kernel: matmul distance tile +
     lax.top_k.  Returns lazy (d, i); missing neighbors follow the
     scipy convention (d=inf, i=n)."""
     xl = sp.lazify(x)
@@ -263,7 +263,7 @@ class KDTree:
 
 class cKDTree(KDTree):
   """Alias of KDTree (scipy's C implementation distinction is
-  meaningless here — both lower to the same MXU kernels)."""
+  meaningless here — both lower to the same matmul kernels)."""
 
 
 def distance_matrix(x, y, p=2.0, threshold=1000000):

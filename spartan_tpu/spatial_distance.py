@@ -1,9 +1,9 @@
 """``sp.spatial.distance`` — the scipy.spatial.distance surface.
 
-Pairwise distances are the canonical MXU workload: ``cdist``/``pdist``
+Pairwise distances are the canonical matmul workload: ``cdist``/``pdist``
 for the inner-product metrics (euclidean/sqeuclidean/cosine/
 correlation/mahalanobis) lower to one matmul + rank-1 corrections
-(the examples/kmeans pattern, 47x over scatter on v5e); the L1-family
+(the examples/kmeans pattern); the L1-family
 metrics (cityblock/chebyshev/minkowski/canberra/braycurtis/hamming/
 jaccard/...) are broadcast reductions XLA tiles without materializing
 the (m, n, d) intermediate beyond registers.  ``pdist`` computes the
@@ -32,14 +32,14 @@ __all__ = [
 
 
 def _dot(a, b):
-  """Pairwise dots at precision='highest': on TPU a bare f32 matmul
-  runs bf16 passes — fine for kmeans-style argmins, NOT for a
-  user-facing distance value (measured 8e-3 abs error on chip)."""
+  """Pairwise dots at precision='highest': at default precision an f32
+  matmul may run reduced-precision passes (TF32 on a GPU) — fine for
+  kmeans-style argmins, NOT for a user-facing distance value."""
   return jnp.matmul(a, b, precision="highest")
 
 
 def _pair_dot(a, b):
-  """MXU form: |a|² + |b|² - 2ab, clamped (cancellation guard)."""
+  """Matmul form: |a|² + |b|² - 2ab, clamped (cancellation guard)."""
   sq = ((a * a).sum(-1)[:, None] + (b * b).sum(-1)[None, :]
         - 2.0 * _dot(a, b.T))
   return jnp.maximum(sq, 0.0)
@@ -178,7 +178,7 @@ def _extra_ops(metric, kw, XA):
 
 
 def cdist(XA, XB, metric="euclidean", **kw):
-  """Pairwise distances between two collections (lazy, MXU-routed
+  """Pairwise distances between two collections (lazy, matmul-routed
   for the inner-product metrics)."""
   A, B = sp.lazify(XA), sp.lazify(XB)
   kern = _metric_kern(metric, kw)

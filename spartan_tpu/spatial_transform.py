@@ -5,7 +5,7 @@ Expr; every representation conversion (matrix/rotvec/euler/mrp/quat),
 composition, inversion, ``apply`` and ``Slerp`` interpolation is a
 branch-free jnp kernel inside one ``sp.map`` — batched rotations lower
 to a handful of fused elementwise passes (plus one small matmul for
-``apply``/``as_matrix``), which is the whole workload on TPU: there is
+``apply``/``as_matrix``), which is the whole workload on device: there is
 no per-rotation control flow anywhere.  Euler extraction is the
 general two-family (Tait-Bryan / proper) index-parity formulation with
 a where-selected gimbal-lock branch, valid for all 24 conventions.

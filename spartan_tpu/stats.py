@@ -1,4 +1,4 @@
-"""``sp.stats`` — the scipy.stats surface, TPU-first.
+"""``sp.stats`` — the scipy.stats surface, on device.
 
 The reference has no statistics module (beyond-parity surface, the
 sp.special pattern).  Three design layers:
@@ -1444,7 +1444,7 @@ def combine_pvalues(pvalues, method="fisher", weights=None):
 
 def gaussian_kde(dataset, bw_method=None, weights=None):
   """Gaussian KDE (jax.scipy.stats.gaussian_kde — pairwise kernel
-  sums ride the MXU; evaluate/logpdf/pdf return device arrays)."""
+  sums ride the matrix units; evaluate/logpdf/pdf return device arrays)."""
   import jax.scipy.stats as _jst
   ds = np.asarray(sp.lazify(dataset).glom())
   w = None if weights is None else np.asarray(sp.lazify(weights).glom())

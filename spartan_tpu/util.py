@@ -1,6 +1,6 @@
 """Logging, timing and assertion helpers.
 
-TPU-native rebuild of the reference's utility substrate (reference:
+Rebuild of the reference's utility substrate (reference:
 ``spartan/util.py`` — leveled logging, ``Timer``/``timeit``, ``Assert``
 helpers used throughout the test suite, ``divup``; SURVEY.md §2.1).
 """
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import functools
 import logging
+import os
 import time
 from contextlib import contextmanager
 from typing import Any, Callable, Dict
@@ -23,6 +24,25 @@ if not _log.handlers:
                         datefmt="%H:%M:%S"))
   _log.addHandler(_handler)
   _log.propagate = False
+
+
+def enable_compile_cache() -> str:
+  """Turn on JAX's persistent compile cache; returns its directory.
+
+  If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+  sets nothing.  Otherwise the cache goes to ``<checkout>/.jax_cache``,
+  derived from this file's location: the path is part of the cache key,
+  so it must not change from one run to the next."""
+  env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+  if env:
+    return env
+  import jax
+  path = os.path.join(
+      os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+      ".jax_cache")
+  os.makedirs(path, exist_ok=True)
+  jax.config.update("jax_compilation_cache_dir", path)
+  return path
 
 
 def set_log_level(level: int) -> None:

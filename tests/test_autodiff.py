@@ -1,4 +1,4 @@
-"""Autodiff bridge: jax.grad over lazy DAGs (TPU-native bonus — the
+"""Autodiff bridge: jax.grad over lazy DAGs (JAX-native bonus — the
 reference's examples hand-derive gradients; here both paths exist and must
 agree)."""
 

@@ -95,3 +95,24 @@ def test_einsum(rng):
                    np.einsum("bij,ij->b", c, a), rtol=1e-12)
   Assert.all_close(sp.einsum("ii->", sp.from_numpy(a[:6, :6])),
                    np.einsum("ii->", a[:6, :6]), rtol=1e-12)
+
+
+@pytest.mark.parametrize("op", ["dot", "tensordot"])
+def test_f64_accumulation_widens_f32_operands(rng, op):
+  """With f64 accumulation (float64_reductions under x64), an f32 × f32
+  contraction must reach dot_general with f64 operands: XLA's GPU
+  backend has no f32 × f32 → f64 GEMM.  Values match the f64 oracle."""
+  import jax
+
+  from spartan_tpu.expr.base import EmitCtx
+  a = rng.standard_normal((16, 8)).astype(np.float32)
+  b = rng.standard_normal((8, 4)).astype(np.float32)
+  e = (sp.dot(sp.from_numpy(a), sp.from_numpy(b)) if op == "dot" else
+       sp.tensordot(sp.from_numpy(a), sp.from_numpy(b), axes=1))
+  jaxpr = jax.make_jaxpr(lambda x, y: e._emit(EmitCtx(), [x, y]))(a, b)
+  dots = [q for q in jaxpr.jaxpr.eqns if q.primitive.name == "dot_general"]
+  assert dots and all(v.aval.dtype == np.float64
+                      for q in dots for v in q.invars)
+  np.testing.assert_allclose(np.asarray(e.glom()),
+                             a.astype(np.float64) @ b.astype(np.float64),
+                             rtol=1e-12)

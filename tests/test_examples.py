@@ -222,7 +222,7 @@ def test_logistic_svm_fuzzy_fit_fused_match_stepwise():
 
 
 def test_kmeans_update_matmul_equals_scatter(rng):
-  """One-hot MXU segment-sum ≡ scatter-add combiner (both vs np.add.at)."""
+  """One-hot matmul segment-sum ≡ scatter-add combiner (both vs np.add.at)."""
   pts, _ = kmeans.make_data(n=256, d=3, k=4, seed=12)
   c0 = np.asarray(pts.value.glom()[:4])
   labels = kmeans.assign_labels(pts, sp.from_numpy(c0))
@@ -489,7 +489,7 @@ def test_examples_runner_registry_complete():
 
 
 def test_knn_matches_numpy_oracle(rng):
-  """MXU-formulated k-NN ≡ a brute-force numpy k-NN on the same data."""
+  """Matmul-formulated k-NN ≡ a brute-force numpy k-NN on the same data."""
   from spartan_tpu.examples import knn
   X, y = knn.make_blobs(256, 4, seed=2)
   Q, _ = knn.make_blobs(64, 4, seed=3)

@@ -1,103 +1,78 @@
-"""Pallas kernels in interpret mode vs numpy oracles (compiled path runs
-on real TPU via bench.py)."""
+"""Hot-path lowerings are plain XLA: full sums of elementwise chains fuse
+into one reduction in the region XLA compiles, and on an accelerator
+(platform patched to "gpu") every sum / SpMV / SpMM surface picks an XLA
+route — no ``pallas_call`` in any region's jaxpr."""
 
+import jax
 import numpy as np
 import pytest
-import jax.numpy as jnp
+import scipy.sparse as ss
 
-from spartan_tpu.backend.kernels import fused_reduce, matmul, spmv_pallas
-
-
-def test_fused_sum_identity(rng):
-  x = rng.standard_normal((64, 128)).astype(np.float32)
-  got = float(fused_reduce.fused_sum(jnp.asarray(x), interpret=True))
-  np.testing.assert_allclose(got, x.sum(), rtol=1e-5)
+import spartan_tpu as sp
+from spartan_tpu.backend import evaluator
+from spartan_tpu.backend import sparse as sps
 
 
-def test_fused_sum_elementwise_chain(rng):
-  x = rng.standard_normal((64, 128)).astype(np.float32)
-  got = float(fused_reduce.fused_sum(jnp.asarray(x),
-                                     f=lambda v: 1.0 + v * 2.0,
-                                     interpret=True))
-  np.testing.assert_allclose(got, (1.0 + x * 2.0).sum(), rtol=1e-5)
+@pytest.fixture
+def regions(monkeypatch):
+  """Record every region the evaluator compiles; returns a list that
+  ``jaxprs()`` turns into the regions' jaxpr texts."""
+  seen = []
+  real = evaluator._make_runner
+
+  def spy(root, leaf_index):
+    run = real(root, leaf_index)
+
+    def traced(*args):
+      seen.append((run, [jax.ShapeDtypeStruct(a.shape, a.dtype)
+                         for a in args]))
+      return run(*args)
+    return traced
+
+  monkeypatch.setattr(evaluator, "_make_runner", spy)
+  evaluator.clear_cache()
+
+  class Regions(list):
+    def jaxprs(self):
+      return [str(jax.make_jaxpr(run)(*avals)) for run, avals in seen]
+  out = Regions()
+  yield out
+  evaluator.clear_cache()
 
 
-def test_config1_kernel(rng):
-  x = rng.standard_normal((128, 256)).astype(np.float32)
-  got = float(fused_reduce.ones_plus_scale_sum(jnp.asarray(x), 2.0,
-                                               interpret=True))
-  np.testing.assert_allclose(got, (1.0 + 2.0 * x).sum(), rtol=1e-5)
+_SUMS = {
+    # full sums over one operand: one XLA reduction each
+    "identity": ((64, 128), lambda x: sp.sum(x), lambda h: h.sum()),
+    "chain": ((64, 128), lambda x: sp.sum(sp.abs(1.0 + x * 2.0)),
+              lambda h: np.abs(1.0 + h * 2.0).sum()),
+    "nondivisible_rows": ((13, 20), lambda x: sp.sum(sp.exp(x) * x),
+                          lambda h: (np.exp(h) * h).sum()),
+    "config1": ((128, 256),
+                lambda x: (sp.ones((128, 256), dtype=np.float32)
+                           + x * 2.0).sum(),
+                lambda h: (1.0 + 2.0 * h).sum()),
+}
 
 
-def test_fused_sum_nondivisible_rows(rng):
-  x = rng.standard_normal((56, 128)).astype(np.float32)  # 56 % 8 == 0
-  got = float(fused_reduce.fused_sum(jnp.asarray(x), interpret=True))
-  np.testing.assert_allclose(got, x.sum(), rtol=1e-5)
-
-
-def test_pallas_matmul(rng):
-  a = rng.standard_normal((64, 256)).astype(np.float32)
-  b = rng.standard_normal((256, 128)).astype(np.float32)
-  got = np.asarray(matmul.matmul(jnp.asarray(a), jnp.asarray(b),
-                                 bm=32, bn=128, bk=128, interpret=True))
-  np.testing.assert_allclose(got, a @ b, rtol=1e-4, atol=1e-4)
-
-
-def test_pallas_matmul_epilogue(rng):
-  a = rng.standard_normal((32, 128)).astype(np.float32)
-  b = rng.standard_normal((128, 128)).astype(np.float32)
-  got = np.asarray(matmul.matmul(jnp.asarray(a), jnp.asarray(b),
-                                 bm=32, bn=128, bk=128,
-                                 epilogue=lambda acc: jnp.maximum(acc, 0.0),
-                                 interpret=True))
-  np.testing.assert_allclose(got, np.maximum(a @ b, 0.0), rtol=1e-4,
-                             atol=1e-4)
-
-
-def test_pallas_spmv(rng):
-  import scipy.sparse as ss
-  from spartan_tpu.backend import sparse as sps
-  A = ss.random(64, 80, density=0.15,
-                random_state=np.random.RandomState(3), format="csr")
-  S = sps.from_scipy(A, dtype=np.float32)
-  x = rng.standard_normal(80).astype(np.float32)
-  got = np.asarray(spmv_pallas.spmv(S.cols, S.vals, jnp.asarray(x),
-                                    interpret=True))
-  np.testing.assert_allclose(got, A @ x, rtol=1e-4, atol=1e-5)
-
-
-def test_reduce_lowered_to_pallas_path(rng):
-  """The framework's own (ones + b*2).sum() lowers to the Pallas kernel
-  when enabled (interpret mode on CPU) and matches the XLA path exactly."""
-  import spartan_tpu as sp
-  from spartan_tpu.config import FLAGS
-  b_np = rng.standard_normal((64, 256)).astype(np.float32)
-  want = (1.0 + b_np.astype(np.float64) * 2.0).sum()
-
-  def build():
-    return (sp.ones((64, 256), dtype=np.float32)
-            + sp.from_numpy(b_np) * 2.0).sum()
-
-  xla = float(build().glom())
-  FLAGS.pallas_interpret = True
-  try:
-    pallas = float(build().glom())
-  finally:
-    FLAGS.pallas_interpret = False
-  np.testing.assert_allclose(xla, want, rtol=1e-6)
-  np.testing.assert_allclose(pallas, want, rtol=1e-6)
+@pytest.mark.parametrize("case", sorted(_SUMS))
+def test_full_sum_matches_numpy(rng, regions, case):
+  shape, build, oracle = _SUMS[case]
+  h = rng.standard_normal(shape).astype(np.float32)
+  got = float(build(sp.from_numpy(h)).glom())
+  np.testing.assert_allclose(got, oracle(h.astype(np.float64)), rtol=1e-6)
+  texts = regions.jaxprs()
+  assert texts and all("pallas_call" not in t for t in texts)
+  assert any("reduce_sum" in t for t in texts)
 
 
 def test_const_fold_unlocks_scalar_leaves(rng):
   """ConstFoldCreations: ones(shape) feeding a fused reduce becomes a
-  scalar leaf (required for the Pallas SMEM scalar path)."""
-  import spartan_tpu as sp
-  from spartan_tpu.expr.base import Val
+  scalar leaf (the affine rewrite then needs no materialized ones)."""
+  from spartan_tpu.expr.ndarray import CreationExpr
   from spartan_tpu.expr.optimize import optimize
   b = sp.from_numpy(rng.standard_normal((16, 16)))
   e = optimize((sp.ones((16, 16)) + b * 2.0).sum())
   # after folding, no CreationExpr remains among the fused inputs
-  from spartan_tpu.expr.ndarray import CreationExpr
   assert not any(isinstance(c, CreationExpr) for c in e.inputs)
   # and the result is unchanged
   bn = b.value.glom()
@@ -106,183 +81,55 @@ def test_const_fold_unlocks_scalar_leaves(rng):
       (1.0 + bn * 2.0).sum(), rtol=1e-12)
 
 
-def test_pallas_stencil3x3(rng):
-  from spartan_tpu.backend.kernels import stencil_pallas
-  x = rng.standard_normal((64, 96)).astype(np.float32)
-  coeffs = (0.0, 1.0, 0.0, 1.0, -4.0, 1.0, 0.0, 1.0, 0.0)  # laplacian
-  got = np.asarray(stencil_pallas.stencil3x3(jnp.asarray(x), coeffs,
-                                             interpret=True))
-  xp = np.pad(x, 1)
-  want = sum(coeffs[di * 3 + dj] * xp[di:di + 64, dj:dj + 96]
-             for di in range(3) for dj in range(3))
-  np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+def _matrices(rng):
+  """(structure, expected accelerator route, scipy matrix)."""
+  blocks = [rng.standard_normal((128, 128)) for _ in range(3)]
+  return [
+      ("block", "bsr", ss.block_diag(blocks, format="csr")
+       .astype(np.float32)),
+      ("dense-ish", "dense", ss.random(
+          512, 512, density=0.05, random_state=1, format="csr",
+          dtype=np.float32)),
+      ("unstructured", "ell", ss.random(
+          1024, 1024, density=0.001, random_state=2, format="csr",
+          dtype=np.float32)),
+  ]
 
 
-def test_pallas_stencil_ragged_fallback(rng):
-  from spartan_tpu.backend.kernels import stencil_pallas
-  x = rng.standard_normal((13, 20)).astype(np.float32)  # 13 % 8 != 0
-  coeffs = tuple(float(v) for v in rng.standard_normal(9))
-  got = np.asarray(stencil_pallas.stencil3x3(jnp.asarray(x), coeffs))
-  xp = np.pad(x, 1)
-  want = sum(coeffs[di * 3 + dj] * xp[di:di + 13, dj:dj + 20]
-             for di in range(3) for dj in range(3))
-  np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-def test_windowed_spmv_random(rng):
-  """Scalar-prefetch windowed SpMV vs scipy oracle (interpret mode)."""
-  import scipy.sparse as ss
-
-  from spartan_tpu.backend.kernels import spmv_pallas as sk
-  n, per_row = 3000, 9
-  nnz = n * per_row
-  r = rng.integers(0, n, nnz)
-  c = rng.integers(0, n, nnz)
-  v = rng.standard_normal(nnz).astype(np.float32)
-  A = ss.coo_matrix((v, (r, c)), shape=(n, n)).tocsr()
-  A.sum_duplicates()
-  x = rng.standard_normal(n).astype(np.float32)
-  packed = sk.pack_windowed(A)
-  got = np.asarray(sk.make_spmv_windowed(packed, interpret=True)(
-      jnp.asarray(x)))
-  want = A @ x
-  assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
-
-
-def test_windowed_spmv_rectangular_and_empty_blocks(rng):
-  import scipy.sparse as ss
-
-  from spartan_tpu.backend.kernels import spmv_pallas as sk
-  # rows 2048..3071 empty: their output block must still be zeroed
-  A = ss.random(4096, 2500, density=0.004, random_state=3, format="csr",
-                dtype=np.float32)
-  A = A.tolil()
-  A[2048:3072, :] = 0
-  A = A.tocsr()
-  A.eliminate_zeros()
-  x = rng.standard_normal(2500).astype(np.float32)
-  packed = sk.pack_windowed(A)
-  got = np.asarray(sk.make_spmv_windowed(packed, interpret=True)(
-      jnp.asarray(x)))
-  want = A @ x
-  assert np.abs(got[2048:3072]).max() == 0.0
-  assert np.abs(got - want).max() / max(np.abs(want).max(), 1e-9) < 1e-5
-
-def test_sharded_windowed_spmv_random(rng):
-  """Row-sharded windowed SpMV (shard_map over the 8-dev mesh, interpret
-  mode) vs scipy oracle, square + rectangular + tiny (empty shards)."""
-  import jax
-  import scipy.sparse as ss
-
-  from spartan_tpu.backend.kernels import spmv_pallas as sk
-  from spartan_tpu.core.mesh import get_mesh
-
-  mesh = get_mesh()
-  p = int(mesh.devices.size)
-  for n, m, dens in [(8192, 8192, 0.003), (5000, 7000, 0.001),
-                     (600, 2048, 0.01)]:
-    A = ss.random(n, m, density=dens, random_state=11, format="csr",
-                  dtype=np.float32)
-    x = rng.standard_normal(m).astype(np.float32)
-    packed = sk.pack_windowed_sharded(A, p)
-    got = np.asarray(sk.sharded_windowed_spmv_traced(
-        jnp.asarray(packed.rb), jnp.asarray(packed.win),
-        jnp.asarray(packed.init), jnp.asarray(packed.cols_lo),
-        jnp.asarray(packed.rows_lo), jnp.asarray(packed.vals),
-        jnp.asarray(x), shape=packed.shape, mesh=mesh, interpret=True))
-    want = A @ x
-    assert got.shape == (n,)
-    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-9)
-    assert err < 1e-5, (n, m, err)
-
-
-def test_unshard_windowed_matches_sharded(rng):
-  """unshard_windowed (the mesh-size-mismatch fallback) flattens the
-  per-shard stacks back to a valid global windowed form."""
-  import scipy.sparse as ss
-
-  from spartan_tpu.backend.kernels import spmv_pallas as sk
-  n, m = 3000, 3000
-  A = ss.random(n, m, density=0.004, random_state=5, format="csr",
-                dtype=np.float32)
-  x = rng.standard_normal(m).astype(np.float32)
-  packed = sk.pack_windowed_sharded(A, 4)   # deliberately != mesh size
-  rb_g, win_g, init_g, cols_g, rows_g, vals_g, n_pad = sk.unshard_windowed(
-      jnp.asarray(packed.rb), jnp.asarray(packed.win),
-      jnp.asarray(packed.init), jnp.asarray(packed.cols_lo),
-      jnp.asarray(packed.rows_lo), jnp.asarray(packed.vals), n, 4)
-  got = np.asarray(sk.windowed_spmv_traced(
-      rb_g, win_g, init_g, cols_g, rows_g, vals_g, jnp.asarray(x),
-      shape=(int(n_pad), m), interpret=True))[:n]
-  want = A @ x
-  err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-9)
-  assert err < 1e-5, err
-
-def test_windowed_spmv_chunked_launches(rng, monkeypatch):
-  """Packs past the scalar-prefetch SMEM budget run as chained chunked
-  launches (r4s2: 132K-step pack blew the 1 MB SMEM on hardware).
-  Forces tiny chunks so cuts land mid-row-block; the aliased
-  accumulator operand must carry partial blocks across launches."""
-  import scipy.sparse as ss
-
-  from spartan_tpu.backend.kernels import spmv_pallas as sk
-  monkeypatch.setattr(sk, "_MAX_PREFETCH_STEPS", 7)
-  A = ss.random(2048, 12000, density=0.002,
-                random_state=np.random.RandomState(1), format="csr",
-                dtype=np.float32)
-  packed = sk.pack_windowed(A)
-  assert packed.rb.shape[0] > 21  # several chunks
-  x = rng.standard_normal(12000).astype(np.float32)
-  got = np.asarray(sk.make_spmv_windowed(packed, interpret=True)(
-      jnp.asarray(x)))
-  want = A @ x
-  assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
-  # sharded form: same chunking inside the shard_map body
-  packed_s = sk.pack_windowed_sharded(A, 8)
-  import jax
-  from spartan_tpu.core.mesh import get_mesh
-  got_s = np.asarray(sk.sharded_windowed_spmv_traced(
-      *(jnp.asarray(a) for a in (packed_s.rb, packed_s.win,
-                                 packed_s.init, packed_s.cols_lo,
-                                 packed_s.rows_lo, packed_s.vals)),
-      jnp.asarray(x), shape=packed_s.shape, mesh=get_mesh(),
-      interpret=True))[:2048]
-  assert np.abs(got_s - want).max() / np.abs(want).max() < 1e-5
-  # the opt-in exact pack refuses oversize packs with guidance
-  import pytest as _pt
-  packed_u = sk.pack_windowed_unique(A)
-  with _pt.raises(ValueError, match="SMEM budget"):
-    sk.make_spmv_windowed(packed_u)(jnp.asarray(x))
-
-
-def test_windowed_unique_spmv(rng):
-  """Unique-rows pack (all-VPU exact kernel): duplicates of a (block,
-  window, row) triple split strips; inverse-map scatter matches scipy to
-  f32 exactness; empty matrix and heavy-duplicate cases covered."""
-  import scipy.sparse as ss
-
-  from spartan_tpu.backend.kernels import spmv_pallas as sk
-  n, m = 3000, 2500
-  nnz = n * 9
-  r = rng.integers(0, n, nnz)
-  c = rng.integers(0, m, nnz)
-  v = rng.standard_normal(nnz).astype(np.float32)
-  A = ss.coo_matrix((v, (r, c)), shape=(n, m)).tocsr()
-  A.sum_duplicates()
-  x = rng.standard_normal(m).astype(np.float32)
-  packed = sk.pack_windowed_unique(A)
-  assert packed.inv is not None
-  got = np.asarray(sk.make_spmv_windowed(packed, interpret=True)(
-      jnp.asarray(x)))
-  want = A @ x
-  assert np.abs(got - want).max() / np.abs(want).max() < 2e-6
-
-  # heavy duplicates: many nnz in one (row, window) pair
-  B = ss.lil_matrix((1100, 1100), dtype=np.float32)
-  B[5, 0:200] = rng.standard_normal(200)     # 200 entries, one row/window
-  B[5, 1024:1060] = rng.standard_normal(36)
-  B = B.tocsr()
-  xb = rng.standard_normal(1100).astype(np.float32)
-  pb = sk.pack_windowed_unique(B)
-  gb = np.asarray(sk.make_spmv_windowed(pb, interpret=True)(jnp.asarray(xb)))
-  np.testing.assert_allclose(gb, B @ xb, rtol=2e-6, atol=1e-6)
+@pytest.mark.parametrize("surface", ["sum", "spmv", "spmm", "SpMVExpr",
+                                     "SpMMExpr"])
+def test_accelerator_routes_are_xla(rng, regions, as_gpu, surface):
+  if surface == "sum":
+    h = rng.random((64, 128), dtype=np.float32)
+    b = sp.from_numpy(h)
+    with as_gpu():
+      e = sp.sum(sp.abs(1.0 + 2.0 * b))
+    np.testing.assert_allclose(float(e.glom()),
+                               np.abs(1.0 + 2.0 * h.astype(np.float64))
+                               .sum(), rtol=1e-6)
+    texts = regions.jaxprs()
+    assert texts and all("pallas_call" not in t for t in texts)
+    return
+  for name, route, A in _matrices(rng):
+    S = sps.from_scipy(A, dtype=np.float32)
+    mat = surface in ("spmm", "SpMMExpr")
+    rhs = (rng.standard_normal((A.shape[1], 8)) if mat
+           else rng.standard_normal(A.shape[1])).astype(np.float32)
+    want = A @ rhs
+    if surface in ("spmv", "spmm"):
+      fn = sps.spmm if mat else sps.spmv
+      with as_gpu():
+        got = np.asarray(fn(S, rhs))            # fills the route caches
+        text = str(jax.make_jaxpr(lambda r: fn(S, r))(rhs))
+      assert "pallas_call" not in text, (name, text[-400:])
+      assert ("gather" in text) == (route != "dense"), (name, route)
+    else:
+      cls = sps.SpMMExpr if mat else sps.SpMVExpr
+      with as_gpu():
+        e = cls(S, sp.from_numpy(rhs))
+      assert e.fmt == route, (name, e.fmt, route)
+      got = np.asarray(e.glom())
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() / scale < 1e-5, (surface, name)
+  texts = regions.jaxprs()
+  assert all("pallas_call" not in t for t in texts)

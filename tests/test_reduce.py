@@ -96,8 +96,8 @@ def test_ptp(a):
 
 
 class TestAffineReduceRewrite:
-  """sum(a·x + b) → a·sum(x) + b·n strength reduction (TPU perf pass:
-  linear chains run at pure-sum memory speed instead of VPU-bound)."""
+  """sum(a·x + b) → a·sum(x) + b·n strength reduction (perf pass:
+  linear chains run as a pure sum plus a scalar epilogue)."""
 
   def _both(self, build, want, rtol=1e-12):
     from spartan_tpu.config import FLAGS

@@ -1,7 +1,7 @@
 """Distributed sample sort + exact selection (reference:
 ``spartan/expr/sort.py`` sample+shuffle sort; SURVEY.md §2.1 sort row).
 
-The sample path is the TPU rebuild of the reference's distributed sort:
+The sample path is the rebuild of the reference's distributed sort:
 exact rank splitters + ragged/dense bucket exchange
 (``spartan_tpu/parallel/sample_sort.py``).  Tests force it with
 ``--sort_method=sample`` (the 'auto' default only engages above
@@ -184,8 +184,8 @@ def test_sample_sort_hlo_has_all_to_all(rng, cluster):
       assert f"f32[{1 << 13}]" not in line, line
 
 
-def test_sample_sort_ragged_lowering_for_tpu(rng, cluster):
-  """The TPU exchange lowers to ragged_all_to_all (can't execute on the
+def test_sample_sort_ragged_lowering_for_gpu(rng, cluster):
+  """The GPU exchange lowers to ragged_all_to_all (can't execute on the
   CPU mesh — XLA:CPU has no ragged thunk — but the trace must build)."""
   from jax.sharding import NamedSharding, PartitionSpec as P
   a = jax.device_put(jnp.asarray(rng.standard_normal(1 << 12),
@@ -214,9 +214,8 @@ def test_auto_threshold_routing(rng, cluster):
 
 def test_dot_precision_plumbs_to_hlo(rng, cluster):
   """--dot_precision / sp.dot(precision=...) reaches the lowered dot
-  (TPU f32 matmuls run bf16 passes at default; 'highest' restores the
-  reference's numpy-BLAS accuracy — verified on-chip: blocked cholesky
-  err 1.7e-2 -> f32-level with 'highest')."""
+  (f32 matmuls may run reduced-precision passes at default — TF32 on a
+  GPU; 'highest' restores the reference's numpy-BLAS accuracy)."""
   txt = jax.jit(lambda x: jnp.matmul(
       x, x, precision="highest")).lower(jnp.ones((8, 8))).as_text()
   assert "HIGHEST" in txt.upper()

@@ -79,7 +79,7 @@ def test_sort_sharded_lowering_documented(rng, cluster):
   ≥ the array once — and trades redundant FLOPs (free: chips would idle
   during a distributed merge anyway) for zero extra collectives.  The
   reference's sample+partition shuffle exists because no RPC worker
-  could hold the full array; one TPU chip holds 4G f32 elements, so the
+  could hold the full array; one 80 GB device holds 20G f32 elements, so the
   gather-sort plan is the latency answer up to per-device memory.
   Beyond it (or with --sort_method=sample) the distributed sample sort
   serves instead — see test_sample_sort.py.

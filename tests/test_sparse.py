@@ -43,7 +43,7 @@ def test_duplicate_coo_entries_merge():
 def test_spmv_matches_scipy(A, rng):
   S = sps.from_scipy(A)
   x = rng.standard_normal(48)
-  got = np.asarray(sps.spmv(S, x, use_pallas=False))
+  got = np.asarray(sps.spmv(S, x))
   np.testing.assert_allclose(got, A @ x, atol=1e-10)
 
 
@@ -103,7 +103,7 @@ def test_sharded_spmv_matches(rng, cluster):
   assert len({d for sh in Ssh.vals.addressable_shards
               for d in [sh.device]}) == 8
   x = rng.standard_normal(40)
-  got = np.asarray(sps.spmv(Ssh, x, use_pallas=False))
+  got = np.asarray(sps.spmv(Ssh, x))
   np.testing.assert_allclose(got, A @ x, atol=1e-10)
   # expr-layer path over sharded tiles
   expr = sps.spmv_expr(Ssh, sp.from_numpy(x)) * 2.0
@@ -128,7 +128,7 @@ def test_sparse_save_load(tmp_path):
 
 
 class TestBlockSparse:
-  """Block-ELL (BSR): MXU-path structured sparsity."""
+  """Block-ELL (BSR): structured sparsity as batched block matmuls."""
 
   def _mk(self, rng, nbr=4, nbc=3, bs=8, density=0.4):
     import scipy.sparse as ss
@@ -189,7 +189,7 @@ def test_to_scipy_roundtrip(rng):
 
 def test_to_bsr_roundtrip_and_spmv(rng, cluster):
   """Unstructured -> block-ELL bridging must preserve the matrix and give
-  identical SpMV results (the opt-in MXU path)."""
+  identical SpMV results (the opt-in block-ELL path)."""
   import scipy.sparse as ss
   from spartan_tpu.backend import sparse as sps
   dense = np.zeros((256, 384))
@@ -244,7 +244,7 @@ def test_auto_route_detects_block_structure():
 
 
 def test_spmv_expr_bsr_formulation_matches_dense(rng):
-  """The block-ELL SpMVExpr emit (MXU path on TPU) agrees with the dense
+  """The block-ELL SpMVExpr emit agrees with the dense
   product, including non-divisible shapes via zero-padding."""
   import scipy.sparse as ss
   from spartan_tpu.backend import sparse as sps
@@ -287,112 +287,17 @@ def test_fit_sparse_runs_framework_path(monkeypatch):
   np.testing.assert_allclose(r, rn, atol=1e-10)
 
 
-def test_spmv_expr_windowed_route_on_mesh(rng):
-  """The windowed-kernel SpMVExpr route, forced on the 8-dev CPU mesh
-  (interpret mode): on a multi-device mesh the route is the row-sharded
-  shard_map form (fmt='winsh', owner-computes), and the full pagerank
-  loop through sp.make_fori must match the dense oracle."""
-  import scipy.sparse as ss
-
-  from spartan_tpu.backend import sparse as sps
-  from spartan_tpu.config import FLAGS
-  old = FLAGS.sparse_force_windowed
-  FLAGS.sparse_force_windowed = True
-  try:
-    n = 600
-    A = ss.random(n, n, density=0.01, random_state=7, format="csr",
-                  dtype=np.float32)
-    S = sps.from_scipy(A, dtype=np.float32)
-    x = rng.standard_normal(n).astype(np.float32)
-    e = sps.spmv_expr(S, sp.from_numpy(x))
-    assert e.fmt == "winsh" and e.n_shards == 8
-    got = np.asarray(e.evaluate().glom())
-    want = A @ x
-    assert np.abs(got - want).max() / max(np.abs(want).max(), 1e-9) < 1e-5
-    # composes with the lazy chain + on-device loop
-    r0 = sp.ones((n,), dtype=np.float32) / n
-    run = sp.make_fori(lambda r: sps.spmv_expr(S, r) * 0.5 + 0.5 / n, r0)
-    rr = np.full(n, 1.0 / n, np.float64)
-    for _ in range(5):
-      rr = 0.5 * (A.astype(np.float64) @ rr) + 0.5 / n
-    got5 = np.asarray(run(5).data, dtype=np.float64)
-    np.testing.assert_allclose(got5, rr, rtol=2e-4, atol=1e-9)
-  finally:
-    FLAGS.sparse_force_windowed = old
-
-def test_spmv_expr_winsh_mesh_size_mismatch(rng):
-  """A winsh node built under a 4-device mesh must still evaluate
-  correctly when the ambient mesh is the full 8-device one (the
-  unshard_windowed fallback flattens the per-shard stacks)."""
-  import jax
-  import scipy.sparse as ss
-
-  from spartan_tpu.backend import sparse as sps
-  from spartan_tpu.config import FLAGS
-  from spartan_tpu.core import mesh as mesh_mod
-
-  old = FLAGS.sparse_force_windowed
-  FLAGS.sparse_force_windowed = True
-  try:
-    n = 1500
-    A = ss.random(n, n, density=0.005, random_state=9, format="csr",
-                  dtype=np.float32)
-    S = sps.from_scipy(A, dtype=np.float32)
-    x = rng.standard_normal(n).astype(np.float32)
-    m4 = mesh_mod.make_mesh(devices=jax.devices()[:4])
-    with sp.with_mesh(m4):
-      e = sps.spmv_expr(S, sp.from_numpy(x))
-    assert e.fmt == "winsh" and e.n_shards == 4
-    got = np.asarray(e.evaluate().glom())   # ambient 8-dev mesh here
-    want = A @ x
-    assert np.abs(got - want).max() / max(np.abs(want).max(), 1e-9) < 1e-5
-  finally:
-    FLAGS.sparse_force_windowed = old
-
-def test_spmv_onehot_sharded_route_on_mesh(rng):
-  """Forced one-hot route on the 8-dev CPU mesh (interpret mode): both the
-  eager spmv() and the SpMVExpr ELL path must row-shard the kernel via
-  shard_map and match scipy."""
-  import scipy.sparse as ss
-
-  from spartan_tpu.backend import sparse as sps
-  from spartan_tpu.config import FLAGS
-
-  old_oh, old_bsr = FLAGS.sparse_force_onehot, FLAGS.sparse_auto_bsr
-  FLAGS.sparse_force_onehot = True
-  FLAGS.sparse_auto_bsr = False      # keep the ELL format
-  try:
-    n = 700
-    A = ss.random(n, n, density=0.02, random_state=13, format="csr",
-                  dtype=np.float32)
-    S = sps.from_scipy(A, dtype=np.float32)
-    x = rng.standard_normal(n).astype(np.float32)
-    want = A @ x
-    tol = np.abs(want).max() * 1e-4
-
-    got_eager = np.asarray(sps.spmv(S, x))
-    assert np.abs(got_eager - want).max() < tol
-
-    e = sps.spmv_expr(S, sp.from_numpy(x))
-    assert e.fmt == "ell"
-    got_expr = np.asarray(e.evaluate().glom())
-    assert np.abs(got_expr - want).max() < tol
-  finally:
-    FLAGS.sparse_force_onehot = old_oh
-    FLAGS.sparse_auto_bsr = old_bsr
-
 def test_spmv_eager_f64_matrix_promotes(rng):
-  """ADVICE r2: an f64 SparseArray with f32 x must take the exact XLA
-  path and return the promoted f64 — the Pallas gates may not pack the
-  f64 values down to f32 (the eager gates previously checked only
-  x.dtype)."""
+  """ADVICE r2: an f64 SparseArray with f32 x must take the exact path and
+  return the promoted f64 — no route may pack the f64 values down to f32,
+  the densified one included (it is f32-only)."""
   import scipy.sparse as ss
 
   from spartan_tpu.backend import sparse as sps
   from spartan_tpu.config import FLAGS
 
-  old = FLAGS.sparse_force_onehot
-  FLAGS.sparse_force_onehot = True   # would take the Pallas gate if buggy
+  old = FLAGS.sparse_force_dense
+  FLAGS.sparse_force_dense = True   # would densify to f32 if buggy
   try:
     A = ss.random(300, 300, density=0.05, random_state=7, format="csr",
                   dtype=np.float64)
@@ -401,42 +306,47 @@ def test_spmv_eager_f64_matrix_promotes(rng):
     out = sps.spmv(S, x)
     assert out.dtype == np.float64
     np.testing.assert_allclose(np.asarray(out), A @ x.astype(np.float64),
-                               rtol=1e-6)
+                               rtol=1e-12)
   finally:
-    FLAGS.sparse_force_onehot = old
+    FLAGS.sparse_force_dense = old
 
 
 def test_spmv_expr_global_precision_flag_routes_exact(rng):
-  """ADVICE r2: a global --dot_precision=highest must suppress the
-  bf16-pass windowed/one-hot routes at SpMVExpr construction, same as the
-  per-call precision override."""
+  """ADVICE r2: a global --dot_precision=highest reaches the densified
+  route's matmul like the per-call precision override does, and the ELL
+  route (no matmul) is unaffected."""
+  import jax
   import scipy.sparse as ss
 
   from spartan_tpu.backend import sparse as sps
   from spartan_tpu.config import FLAGS
+  from spartan_tpu.expr.base import EmitCtx
 
-  old = (FLAGS.dot_precision, FLAGS.sparse_force_windowed,
-         FLAGS.sparse_auto_bsr)
+  old = (FLAGS.dot_precision, FLAGS.sparse_force_dense)
   FLAGS.dot_precision = "highest"
-  FLAGS.sparse_force_windowed = True  # would pick fmt='win*' if not exact
-  FLAGS.sparse_auto_bsr = False
   try:
     A = ss.random(400, 400, density=0.02, random_state=3, format="csr",
                   dtype=np.float32)
-    e = sps.spmv_expr(sps.from_scipy(A, dtype=np.float32),
-                      sp.from_numpy(rng.standard_normal(400)
-                                    .astype(np.float32)))
-    assert e.fmt == "ell", e.fmt  # exact gather formulation, not windowed
+    S = sps.from_scipy(A, dtype=np.float32)
+    x = rng.standard_normal(400).astype(np.float32)
+    e = sps.spmv_expr(S, sp.from_numpy(x))
+    assert e.fmt == "ell", e.fmt
+    np.testing.assert_allclose(np.asarray(e.glom()), A @ x, rtol=1e-5,
+                               atol=1e-5)
+    FLAGS.sparse_force_dense = True
+    ed = sps.spmv_expr(S, sp.from_numpy(x))
+    assert ed.fmt == "dense", ed.fmt
+    jaxpr = str(jax.make_jaxpr(lambda a, b: ed._emit(EmitCtx(), [a, b]))(
+        np.asarray(S.to_densified()), x))
+    assert "Precision.HIGHEST" in jaxpr
   finally:
-    (FLAGS.dot_precision, FLAGS.sparse_force_windowed,
-     FLAGS.sparse_auto_bsr) = old
+    (FLAGS.dot_precision, FLAGS.sparse_force_dense) = old
 
 
 def test_grad_through_spmv_all_formats(rng):
-  """sp.grad must flow through every SpMV route: the autodiff bridge asks
-  emitters for the differentiable lowering (COO scatter-add for windowed
-  packs, XLA gather for ELL) even when evaluation uses Pallas.  Oracle:
-  d/dx of sum(A@x * c) = A^T c."""
+  """sp.grad must flow through every SpMV route (ELL gather, densified
+  matmul, block-ELL einsum — all plain XLA).  Oracle: d/dx of
+  sum(A@x * c) = A^T c."""
   import scipy.sparse as ss
 
   from spartan_tpu.backend import sparse as sps
@@ -459,18 +369,13 @@ def test_grad_through_spmv_all_formats(rng):
     err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-9)
     assert err < tol, (fmt_expected, err)
 
-  # ELL (XLA gather) route
-  old = (FLAGS.sparse_force_windowed, FLAGS.sparse_force_onehot,
-         FLAGS.sparse_auto_bsr)
+  old = (FLAGS.sparse_force_dense, FLAGS.sparse_auto_bsr)
   try:
     FLAGS.sparse_auto_bsr = False
     check("ell", 1e-6)
-    FLAGS.sparse_force_onehot = True       # pallas at eval; grad via XLA
-    check("ell", 1e-6)
-    FLAGS.sparse_force_onehot = False
-    FLAGS.sparse_force_windowed = True     # winsh on the 8-dev mesh
-    check("winsh", 1e-5)
-    FLAGS.sparse_force_windowed = False
+    FLAGS.sparse_force_dense = True
+    check("dense", 1e-5)
+    FLAGS.sparse_force_dense = False
     # BSR format (take+einsum — differentiable directly); 128-divisible
     # dims so the direct BlockSparseArray shape matches the oracle
     nb = 768
@@ -488,8 +393,7 @@ def test_grad_through_spmv_all_formats(rng):
     errb = np.abs(gotb - wantb).max() / max(np.abs(wantb).max(), 1e-9)
     assert errb < 1e-5, errb
   finally:
-    (FLAGS.sparse_force_windowed, FLAGS.sparse_force_onehot,
-     FLAGS.sparse_auto_bsr) = old
+    (FLAGS.sparse_force_dense, FLAGS.sparse_auto_bsr) = old
 
 def test_sparse_transpose_memoized(rng):
   """VERDICT r2 weak #4: dot(dense, S) builds S.T per construction —
@@ -570,20 +474,13 @@ def test_als_sparse_matches_dense(rng):
   err = als.reconstruction_error(S, U2, V2)
   assert err < np.mean(dense ** 2)
 
-@pytest.mark.parametrize("route", ["gather", "onehot", "windowed"])
-def test_sparse_route_differential_sweep(rng, route):
+@pytest.mark.parametrize("route", ["ell", "bsr", "dense"])
+def test_sparse_route_differential_sweep(rng, route, sparse_route):
   """Differential sweep of every SpMV route over awkward shapes and
   densities (incl. empty and single-row matrices) — eager spmv, the expr
   node, and grad all against scipy."""
-  from spartan_tpu.config import FLAGS
-
-  old = (FLAGS.sparse_force_onehot, FLAGS.sparse_force_windowed,
-         FLAGS.sparse_auto_bsr)
-  FLAGS.sparse_force_onehot = route == "onehot"
-  FLAGS.sparse_force_windowed = route == "windowed"
-  FLAGS.sparse_auto_bsr = False
-  tol = 1e-5 if route == "gather" else 1e-4   # f32 inputs either way
-  try:
+  tol = 1e-5   # f32 inputs on every route
+  with sparse_route(route):
     for (n, m, dens) in [(17, 23, 0.3), (1, 100, 0.5), (100, 1, 0.5),
                          (130, 70, 0.0), (600, 300, 0.02)]:
       A = ss.random(n, m, density=dens,
@@ -597,6 +494,8 @@ def test_sparse_route_differential_sweep(rng, route):
       assert got.shape == (n,)
       assert np.abs(got - want).max() / scale < tol, (route, n, m, dens)
       e = sps.spmv_expr(S, sp.from_numpy(x))
+      if dens:   # an empty matrix has no block structure to route
+        assert e.fmt == route, (e.fmt, route, n, m)
       got2 = np.asarray(e.evaluate().glom())
       assert np.abs(got2 - want).max() / scale < tol, (route, n, m, "expr")
       # grad (differentiable lowering, any route)
@@ -608,32 +507,22 @@ def test_sparse_route_differential_sweep(rng, route):
       gscale = max(np.abs(gw).max(), 1.0)
       assert (np.abs(np.asarray(g.glom()) - gw).max() / gscale
               < 1e-5), (route, n, m, "grad")
-  finally:
-    (FLAGS.sparse_force_onehot, FLAGS.sparse_force_windowed,
-     FLAGS.sparse_auto_bsr) = old
 
 def test_save_load_bsr_and_packed_caches(rng, tmp_path):
   """save_sparse persists BlockSparseArrays and a SparseArray's cached
-  packs (BSR repack, windowed chunks) so a reload skips the host pack."""
-  import jax.numpy as jnp
-
+  block-ELL repack so a reload skips the host repack."""
   dense = np.zeros((256, 256), np.float32)
   dense[:128, 128:] = rng.standard_normal((128, 128))
   dense[200, 7] = 2.5
   S = sps.from_scipy(ss.csr_matrix(dense), dtype=np.float32)
-  _ = S.to_windowed()                       # build + cache the pack
   S._bsr_cache = (128, S.to_bsr(bs=128))    # simulate auto_route cache
   sps.save_sparse(S, str(tmp_path / "s"))
   back = sps.load_sparse(str(tmp_path / "s"))
   np.testing.assert_allclose(back.todense(), dense, atol=1e-7)
-  assert back._windowed_cache is not None
-  assert back._windowed_cache.n_chunks == S._windowed_cache.n_chunks
   assert back._bsr_cache is not None and back._bsr_cache[0] == 128
   x = rng.standard_normal(256).astype(np.float32)
-  from spartan_tpu.backend.kernels import spmv_pallas as sk
-  got = np.asarray(sk.make_spmv_windowed(back._windowed_cache,
-                                         interpret=True)(jnp.asarray(x)))
-  np.testing.assert_allclose(got, dense @ x, rtol=1e-4, atol=1e-5)
+  got = np.asarray(sps.bsr_spmv(back._bsr_cache[1], x))
+  np.testing.assert_allclose(got, dense @ x, rtol=1e-5, atol=1e-5)
 
   # bare BlockSparseArray round-trip
   B = sps.from_scipy_bsr(dense, bs=128)
@@ -642,22 +531,9 @@ def test_save_load_bsr_and_packed_caches(rng, tmp_path):
   assert isinstance(B2, sps.BlockSparseArray) and B2.bs == 128
   np.testing.assert_allclose(B2.todense(), dense, atol=1e-7)
 
-  # unique pack (inv) round-trips too
-  S2 = sps.from_scipy(ss.csr_matrix(dense), dtype=np.float32)
-  S2._windowed_cache = sk.pack_windowed_unique(ss.csr_matrix(dense))
-  sps.save_sparse(S2, str(tmp_path / "u"))
-  back2 = sps.load_sparse(str(tmp_path / "u"))
-  assert back2._windowed_cache.inv is not None
-  got2 = np.asarray(sk.make_spmv_windowed(back2._windowed_cache,
-                                          interpret=True)(jnp.asarray(x)))
-  np.testing.assert_allclose(got2, dense @ x, rtol=1e-5, atol=1e-6)
-
 def test_review_fixes_sparse_surface(rng, tmp_path):
   """r2-late review fixes: sparse transpose stays O(nnz); precision
-  reaches the sparse einsums; force_onehot honored at any n; winsh cache
-  persists; sparse@sparse raises clearly; packs upload once."""
-  import jax.numpy as jnp
-
+  reaches the sparse einsums; sparse@sparse raises clearly."""
   # precision='highest' routes to the exact formulations and is recorded
   A = ss.random(200, 200, density=0.05, random_state=1, format="csr",
                 dtype=np.float32)
@@ -672,138 +548,14 @@ def test_review_fixes_sparse_surface(rng, tmp_path):
   with pytest.raises(TypeError, match="sparse @ sparse"):
     _ = S @ sps.from_scipy(A)
 
-  # force_onehot keeps the one-hot route past n=32768 in eager spmv
-  from spartan_tpu.backend.kernels import spmv_pallas
-  from spartan_tpu.config import FLAGS
-  # (kernel correctness is covered elsewhere — only the ROUTING decision
-  # at n>32768 is under test, so stub the kernel out for speed)
-  calls = {"oh": 0}
-  orig_oh = spmv_pallas.sharded_onehot_spmv
-
-  def counting_stub(cols, vals, x, **kw):
-    calls["oh"] += 1
-    return jnp.zeros((cols.shape[0],), vals.dtype)
-
-  spmv_pallas.sharded_onehot_spmv = counting_stub
-  FLAGS.sparse_force_onehot = True
-  FLAGS.sparse_auto_bsr = False
-  try:
-    nb = 33000
-    rr = rng.integers(0, nb, 5000)
-    cc = rng.integers(0, nb, 5000)
-    Abig = ss.coo_matrix((np.ones(5000, np.float32), (rr, cc)),
-                         shape=(nb, nb)).tocsr()
-    Sbig = sps.from_scipy(Abig, dtype=np.float32)
-    xbig = rng.standard_normal(33000).astype(np.float32)
-    got = np.asarray(sps.spmv(Sbig, xbig))
-    assert calls["oh"] == 1          # one-hot route, NOT windowed
-    assert got.shape == (33000,)
-  finally:
-    spmv_pallas.sharded_onehot_spmv = orig_oh
-    FLAGS.sparse_force_onehot = False
-    FLAGS.sparse_auto_bsr = True
-
-  # winsh cache persists through save/load
-  S2 = sps.from_scipy(A, dtype=np.float32)
-  _ = S2.to_windowed_sharded(8)
-  sps.save_sparse(S2, str(tmp_path / "ws"))
-  back = sps.load_sparse(str(tmp_path / "ws"))
-  assert back._winsh_cache is not None and back._winsh_cache[0] == 8
-  assert back._winsh_cache[1].rb.shape == S2._winsh_cache[1].rb.shape
-
-  # device_arrays memoized (no re-upload per call)
-  w = S2.to_windowed()
-  d1 = w.device_arrays()
-  assert w.device_arrays() is d1
-
   # transpose stays sparse (same nnz, matches scipy)
   St = S.transpose()
   assert St.nnz == S.nnz
   np.testing.assert_allclose(St.todense(), A.T.toarray(), atol=1e-7)
 
 
-def test_spmm_windowed_kernel_routes(rng):
-  """VERDICT r2 missing #5: the windowed Pallas SpMM kernel — eager,
-  expr (fmt='winmm'), chain composition, and grad (COO-decode
-  differentiable emission) all match scipy; fill gating keeps
-  ultra-sparse matrices on the XLA path."""
-  from spartan_tpu.config import FLAGS
-
-  old = FLAGS.sparse_force_winmm
-  FLAGS.sparse_force_winmm = True
-  try:
-    A = ss.random(700, 900, density=0.02,
-                  random_state=np.random.RandomState(11), format="csr",
-                  dtype=np.float32)
-    S = sps.from_scipy(A, dtype=np.float32)
-    B = rng.standard_normal((900, 32)).astype(np.float32)
-    want = A @ B
-    tol = np.abs(want).max() * 2e-5
-
-    got_e = np.asarray(sps.spmm(S, B))
-    assert np.abs(got_e - want).max() < tol
-
-    e = sps.spmm_expr(S, sp.from_numpy(B))
-    # 8-dev CPU mesh in tests → the sharded owner-computes form
-    assert e.fmt in ("winmm", "winmmsh"), e.fmt
-    assert np.abs(np.asarray(e.evaluate().glom()) - want).max() < tol
-
-    # composes into the DAG
-    chain = sps.spmm_expr(S, sp.from_numpy(B)) * 2.0 + 1.0
-    assert np.abs(np.asarray(chain.glom()) - (2 * want + 1)).max() < 2 * tol
-
-    # grad via the differentiable COO-decode lowering
-    Bl = sp.from_numpy(B)
-    (g,) = sp.grad(sp.sum(sps.spmm_expr(S, Bl) ** 2), wrt=[Bl])
-    want_g = 2 * A.T @ want
-    assert (np.abs(np.asarray(g.glom()) - want_g).max()
-            < np.abs(want_g).max() * 1e-4)
-
-    # ultra-sparse: fill gate keeps the XLA formulation
-    A2 = ss.random(4000, 5000, density=1e-4,
-                   random_state=np.random.RandomState(12), format="csr",
-                   dtype=np.float32)
-    S2 = sps.from_scipy(A2, dtype=np.float32)
-    assert S2.to_windowed_spmm() is None
-    e2 = sps.spmm_expr(S2, sp.from_numpy(
-        rng.standard_normal((5000, 8)).astype(np.float32)))
-    assert e2.fmt == "ell"
-  finally:
-    FLAGS.sparse_force_winmm = old
-
-
-def test_spmm_windowed_sharded_route(rng, cluster):
-  """fmt='winmmsh': output row blocks owner-computed per device inside
-  shard_map; values + grad match; the unshard fallback serves a
-  mesh-size mismatch."""
-  from spartan_tpu.config import FLAGS
-
-  old = FLAGS.sparse_force_winmm
-  FLAGS.sparse_force_winmm = True
-  try:
-    A = ss.random(900, 1200, density=0.03,
-                  random_state=np.random.RandomState(21), format="csr",
-                  dtype=np.float32)
-    S = sps.from_scipy(A, dtype=np.float32)
-    B = rng.standard_normal((1200, 24)).astype(np.float32)
-    want = A @ B
-    tol = np.abs(want).max() * 2e-5
-
-    e = sps.spmm_expr(S, sp.from_numpy(B))
-    assert e.fmt == "winmmsh" and e.n_shards == int(cluster.devices.size)
-    assert np.abs(np.asarray(e.evaluate().glom()) - want).max() < tol
-
-    Bl = sp.from_numpy(B)
-    (g,) = sp.grad(sp.sum(sps.spmm_expr(S, Bl) ** 2), wrt=[Bl])
-    want_g = 2 * A.T @ want
-    assert (np.abs(np.asarray(g.glom()) - want_g).max()
-            < np.abs(want_g).max() * 1e-4)
-  finally:
-    FLAGS.sparse_force_winmm = old
-
-
 def test_spmm_dense_route(rng, cluster):
-  """r3 densified MXU route: at density/memory within budget, spmm rides
+  """r3 densified route: at density/memory within budget, spmm rides
   one dense matmul (fmt='dense').  Values, chain composition, grad, and
   the aval contract (same shape/dtype as the ELL route) all hold; f64
   operands stay on the XLA-faithful sparse path."""
@@ -863,8 +615,8 @@ def test_spmm_dense_route(rng, cluster):
 
 
 def test_spmm_dense_route_gates(rng):
-  """Without the force flag the dense route needs TPU + density + memory
-  budget — on the CPU test mesh it must never trigger."""
+  """Without the force flag the dense route needs an accelerator +
+  density + memory budget — on the CPU test mesh it must never trigger."""
   A = ss.random(256, 256, density=0.05,
                 random_state=np.random.RandomState(32), format="csr",
                 dtype=np.float32)
@@ -875,11 +627,11 @@ def test_spmm_dense_route_gates(rng):
 
 
 def test_dense_route_precision_floor(rng):
-  """Auto-routing to the densified MXU path must not silently degrade
+  """Auto-routing to the densified path must not silently degrade
   accuracy: with precision unspecified the dense matmul floors to
-  HIGHEST (TPU-default bf16 passes measured 2.4e-3 relerr vs ~1e-6 for
-  the sparse routes this path replaces — BASELINE.md r3 sweep).  An
-  explicit per-call 'default' keeps the fast bf16 path; a global
+  HIGHEST (a reduced-precision default such as TF32 would change answers
+  by orders of magnitude against the ~1e-6 of the sparse routes).  An
+  explicit per-call 'default' keeps the fast path; a global
   --dot_precision setting still wins."""
   import jax
   from spartan_tpu.backend.sparse import _dense_route_precision
@@ -928,8 +680,7 @@ def test_dense_route_precision_floor(rng):
 
 def test_spmv_dense_route(rng, cluster):
   """r3 densified route for SpMV (higher density bar than SpMM): values,
-  chain, grad, and the aval contract hold; force flags for the Pallas
-  kernels take precedence over the dense route."""
+  chain, grad, and the aval contract hold; f64 stays sparse."""
   from spartan_tpu.config import FLAGS
 
   old = FLAGS.sparse_force_dense
@@ -965,14 +716,6 @@ def test_spmv_dense_route(rng, cluster):
     want_g = 2 * A.T @ want
     assert (np.abs(np.asarray(g.glom()) - want_g).max()
             < np.abs(want_g).max() * 1e-4)
-
-    # the Pallas force flags still win (kernel tests rely on them)
-    FLAGS.sparse_force_windowed = True
-    try:
-      e_w = sps.spmv_expr(S, sp.from_numpy(x))
-      assert e_w.fmt in ("win", "winsh"), e_w.fmt
-    finally:
-      FLAGS.sparse_force_windowed = False
 
     # f64 stays on the XLA-faithful sparse path
     S64 = sps.from_scipy(A, dtype=np.float64)
@@ -1032,80 +775,3 @@ def test_scipy_style_surface(rng, cluster):
   assert S.copy() is not S and S.copy().nnz == S.nnz
   assert (S.tocsr() != M).nnz == 0
   assert S.tocoo().shape == M.shape
-
-
-def test_spmv_use_pallas_false_skips_dense_route(rng):
-  """ADVICE r3: an explicit use_pallas=False must keep the XLA-faithful
-  gather formulation — not silently take the densified MXU route."""
-  from spartan_tpu.config import FLAGS
-
-  A = ss.random(300, 300, density=0.05,
-                random_state=np.random.RandomState(7), format="csr",
-                dtype=np.float32)
-  S = sps.from_scipy(A, dtype=np.float32)
-  x = rng.standard_normal(300).astype(np.float32)
-  want = A @ x
-
-  old = FLAGS.sparse_force_dense
-  FLAGS.sparse_force_dense = True
-  try:
-    calls = []
-    orig = type(S).to_densified
-    type(S).to_densified = lambda self: calls.append(1) or orig(self)
-    try:
-      got = np.asarray(sps.spmv(S, x, use_pallas=False))
-      assert not calls, "use_pallas=False took the densified route"
-      got_dense = np.asarray(sps.spmv(S, x))
-      assert calls, "default route should densify under sparse_force_dense"
-    finally:
-      type(S).to_densified = orig
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(got_dense, want, rtol=2e-5, atol=1e-5)
-  finally:
-    FLAGS.sparse_force_dense = old
-
-
-def test_spmm_windowed_k_tiling(rng):
-  """VERDICT r3 next #4: k>128 right-hand sides run the windowed kernel
-  as 128-column strips over the SAME pack — eager, expr (winmm/winmmsh),
-  and grad all match scipy at k=256; the route gate stops at k>512."""
-  from spartan_tpu.config import FLAGS
-
-  old = FLAGS.sparse_force_winmm
-  FLAGS.sparse_force_winmm = True
-  try:
-    A = ss.random(600, 800, density=0.02,
-                  random_state=np.random.RandomState(21), format="csr",
-                  dtype=np.float32)
-    S = sps.from_scipy(A, dtype=np.float32)
-    B = rng.standard_normal((800, 256)).astype(np.float32)
-    want = A @ B
-    tol = np.abs(want).max() * 2e-5
-
-    got = np.asarray(sps.spmm(S, B))
-    assert got.shape == want.shape
-    assert np.abs(got - want).max() < tol
-
-    e = sps.spmm_expr(S, sp.from_numpy(B))
-    assert e.fmt in ("winmm", "winmmsh"), e.fmt
-    assert np.abs(np.asarray(e.evaluate().glom()) - want).max() < tol
-
-    # pack is SHARED across strips (memoized once on the SparseArray)
-    assert S.to_windowed_spmm() is S.to_windowed_spmm()
-
-    # grad flows through the k-tiled route (COO-decode lowering)
-    Bl = sp.from_numpy(B)
-    (g,) = sp.grad(sp.sum(sps.spmm_expr(S, Bl) ** 2), wrt=[Bl])
-    want_g = 2 * A.T @ want
-    assert (np.abs(np.asarray(g.glom()) - want_g).max()
-            < np.abs(want_g).max() * 1e-4)
-
-    # k=512 still routed; k=513 exceeds the gate → ell/dense
-    e512 = sps.spmm_expr(S, sp.from_numpy(
-        rng.standard_normal((800, 512)).astype(np.float32)))
-    assert e512.fmt in ("winmm", "winmmsh"), e512.fmt
-    e513 = sps.spmm_expr(S, sp.from_numpy(
-        rng.standard_normal((800, 513)).astype(np.float32)))
-    assert e513.fmt not in ("winmm", "winmmsh"), e513.fmt
-  finally:
-    FLAGS.sparse_force_winmm = old

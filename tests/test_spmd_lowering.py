@@ -143,7 +143,7 @@ def test_config3_linreg_step_collectives(rng, cluster):
 
 
 def test_config4_kmeans_scatter_add_collectives(rng, cluster):
-  """Config 4: the centroid scatter-add (one-hot MXU segment sum over
+  """Config 4: the centroid scatter-add (one-hot matmul segment sum over
   row-sharded points) must combine partials across shards."""
   from spartan_tpu.examples import kmeans
   pts = sp.from_numpy(rng.standard_normal((64, 8)))

@@ -69,10 +69,9 @@ def test_stencil_feeds_lazy_chain(rng):
 
 
 def test_single_channel_shifted_emit(rng):
-  """O=I=1 stride-1 stencils take the shifted-add emission (the XLA conv
-  lowering is ~100x off the HBM roofline for this case on TPU — measured
-  in tools/stencil_probe_r3.py); must agree with the conv oracle for
-  every kernel shape / padding."""
+  """O=I=1 stride-1 stencils take the shifted-add emission (one
+  elementwise pass instead of a general conv); must agree with the conv
+  oracle for every kernel shape / padding."""
   import jax
   import jax.numpy as jnp
   for kh, kw in [(3, 3), (2, 2), (5, 3), (1, 1), (4, 5), (7, 7)]:
@@ -110,71 +109,29 @@ def test_single_channel_shifted_grad(rng):
   np.testing.assert_allclose(gw, np.asarray(jgw), rtol=1e-10, atol=1e-10)
 
 
-def test_padded_storage_stencil_matches_oracle(rng):
-  """VERDICT r3 next #3: the pre-padded-storage kernel (interpret mode on
-  the CPU mesh) ≡ the one-shot stencil ≡ numpy, over multiple steps, and
-  the zero pad ring survives iteration (buffer aliasing keeps boundaries
-  exact)."""
-  import jax.numpy as jnp
-
-  from spartan_tpu.backend.kernels import stencil_pallas as stp
-
-  n, m = 64, 256
-  x = rng.standard_normal((n, m)).astype(np.float32)
-  coeffs = (0.0, 0.1, 0.0, 0.1, 0.6, 0.1, 0.0, 0.1, 0.0)
-  xp = stp.to_padded(jnp.asarray(x))
-  buf = jnp.zeros_like(xp)
-  out, nbuf = stp.stencil3x3_padded(xp, buf, coeffs, steps=4,
-                                    interpret=True)
-  got = np.asarray(stp.from_padded(out))
-  u = x.astype(np.float64)
-  k = np.asarray(coeffs).reshape(3, 3)
-  for _ in range(4):
-    up = np.pad(u, 1)
-    u = sum(k[di, dj] * up[di:di + n, dj:dj + m]
-            for di in range(3) for dj in range(3))
-  np.testing.assert_allclose(got, u, atol=1e-4)
-  padded = np.asarray(out)
-  assert np.all(padded[:stp.PAD_R] == 0) and np.all(padded[-stp.PAD_R:] == 0)
-  assert np.all(padded[:, :stp.PAD_C] == 0)
-  # ragged width (m % 128 != 0) takes the XLA fallback — same contract
-  x2 = rng.standard_normal((16, 40)).astype(np.float32)
-  xp2 = stp.to_padded(jnp.asarray(x2))
-  out2, _ = stp.stencil3x3_padded(xp2, jnp.zeros_like(xp2), coeffs,
-                                  steps=2, interpret=True)
-  u2 = x2.astype(np.float64)
-  for _ in range(2):
-    up = np.pad(u2, 1)
-    u2 = sum(k[di, dj] * up[di:di + 16, dj:dj + 40]
-             for di in range(3) for dj in range(3))
-  np.testing.assert_allclose(np.asarray(stp.from_padded(out2)), u2,
-                             atol=1e-4)
-
-
 def test_heat_simulate_padded_matches_numpy():
-  """heat.simulate_padded (padded-storage kernel, chunked host loop) ≡
-  the f64 numpy reference to f32 tolerance."""
+  """heat.simulate_padded (one on-device loop of fused shifted-add
+  steps) ≡ the f64 numpy reference to f32 tolerance."""
   from spartan_tpu.examples import heat
   rng = np.random.default_rng(0)
   u0 = np.zeros((64, 256), np.float32)
   for _ in range(6):
     i, j = rng.integers(8, 56), rng.integers(8, 248)
     u0[i, j] = 100.0
-  got = heat.simulate_padded(u0, iters=25, alpha=0.1, unroll=7,
-                             interpret=True)
+  got = heat.simulate_padded(u0, iters=25, alpha=0.1, unroll=7)
   want = heat.simulate_numpy(u0, iters=25, alpha=0.1)
   np.testing.assert_allclose(got, want, atol=2e-3)
 
 
 def test_poisson_jacobi_padded_matches_numpy():
-  """r4: weighted-Jacobi Poisson sweeps on padded storage (constant
-  field fused via add=) ≡ the f64 numpy iterate to f32 tolerance, and
-  the iterate actually reduces the Dirichlet residual."""
+  """r4: weighted-Jacobi Poisson sweeps (constant field fused into each
+  step) ≡ the f64 numpy iterate to f32 tolerance, and the iterate
+  actually reduces the Dirichlet residual."""
   from spartan_tpu.examples import poisson
   rng = np.random.default_rng(3)
   n, m = 64, 256
   f = rng.standard_normal((n, m)).astype(np.float32)
-  got = poisson.solve_jacobi(f, iters=30, unroll=7, interpret=True)
+  got = poisson.solve_jacobi(f, iters=30, unroll=7)
   want = poisson.solve_jacobi_numpy(f, iters=30)
   np.testing.assert_allclose(got, want, atol=2e-4)
   # residual ∥∇²u - f∥ shrinks vs the zero initial guess
@@ -183,37 +140,3 @@ def test_poisson_jacobi_padded_matches_numpy():
   assert np.linalg.norm(lap - f) < 0.9 * np.linalg.norm(f)
 
 
-def test_padded_stencil_sharded_halo_exchange(rng, cluster):
-  """r4 multi-device padded stencil: row bands per device, edge rows
-  ppermuted into kernel halo operands — exact vs numpy for a full
-  asymmetric 3x3 over several steps (8-dev mesh, interpret mode), with
-  and without the fused additive field."""
-  from spartan_tpu.backend.kernels import stencil_pallas as stp
-
-  n, m = 128, 256
-  x = rng.standard_normal((n, m)).astype(np.float32)
-  coeffs = (0.05, 0.1, 0.02, 0.1, 0.4, 0.1, 0.0, 0.1, 0.03)
-  k = np.asarray(coeffs).reshape(3, 3)
-
-  got = np.asarray(stp.stencil3x3_padded_sharded(x, coeffs, steps=4,
-                                                 interpret=True))
-  u = x.astype(np.float64)
-  for _ in range(4):
-    up = np.pad(u, 1)
-    u = sum(k[di, dj] * up[di:di + n, dj:dj + m]
-            for di in range(3) for dj in range(3))
-  np.testing.assert_allclose(got, u, atol=1e-4)
-
-  g = rng.standard_normal((n, m)).astype(np.float32)
-  got = np.asarray(stp.stencil3x3_padded_sharded(x, coeffs, steps=3,
-                                                 interpret=True, add=g))
-  u = x.astype(np.float64)
-  for _ in range(3):
-    up = np.pad(u, 1)
-    u = sum(k[di, dj] * up[di:di + n, dj:dj + m]
-            for di in range(3) for dj in range(3)) + g
-  np.testing.assert_allclose(got, u, atol=1e-4)
-
-  # shape constraint is a loud error, not silence
-  with np.testing.assert_raises(ValueError):
-    stp.stencil3x3_padded_sharded(x[:100], coeffs, interpret=True)

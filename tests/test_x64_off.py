@@ -1,5 +1,5 @@
-"""TPU-mode dtype semantics: the whole suite runs with x64 enabled (NumPy
-parity); this spawns a subprocess with x64 OFF (the real TPU default) and
+"""x64-off dtype semantics: the whole suite runs with x64 enabled (NumPy
+parity); this spawns a subprocess with x64 OFF (JAX's default) and
 smoke-tests the core paths under f32 canonicalization."""
 
 import os
@@ -11,7 +11,7 @@ import pytest
 _SCRIPT = r"""
 import jax
 jax.config.update('jax_platforms', 'cpu')
-# x64 stays OFF — the TPU default
+# x64 stays OFF — JAX's default
 import numpy as np
 import spartan_tpu as sp
 from spartan_tpu.core import mesh as mesh_mod
@@ -78,12 +78,14 @@ def test_tpu_mode_f32_semantics():
 def test_dryrun_16_virtual_devices():
   """The multi-chip path must scale past the 8-device test mesh (the
   driver may dry-run at other widths)."""
+  entry = os.path.join(os.path.dirname(os.path.dirname(
+      os.path.abspath(__file__))), "__graft_entry__.py")
   script = (
       "import jax\n"
       "jax.config.update('jax_platforms','cpu')\n"
       "import importlib.util\n"
       "spec = importlib.util.spec_from_file_location('__graft_entry__',"
-      " '/root/repo/__graft_entry__.py')\n"
+      f" {entry!r})\n"
       "m = importlib.util.module_from_spec(spec)\n"
       "spec.loader.exec_module(m)\n"
       "m.dryrun_multichip(16)\n"

@@ -6,7 +6,7 @@ linalg, optimize) plus scipy.sparse construction: enumerate the
 upstream public callables, classify each as
 
 * **covered** — a same-named spartan_tpu counterpart exists (tagged
-  ``host`` when it is a documented host-boundary name: no XLA:TPU
+  ``host`` when it is a documented host-boundary name: no XLA device
   kernel exists, it evaluates eagerly via scipy with a once-per-process
   notice — the sp.linalg.eig convention);
 * **out of scope** — not an array computation this framework should own
@@ -317,7 +317,7 @@ def main(argv):
                  "`python tools/scipy_parity.py --md > "
                  "docs/PARITY_SCIPY.md`.\n")
     lines.append("`host` names are documented host-boundary wrappers "
-                 "(no XLA:TPU kernel — eager scipy with a once-per-"
+                 "(no XLA device kernel — eager scipy with a once-per-"
                  "process notice, the `sp.linalg.eig` convention); "
                  "everything else covered runs through the lazy device "
                  "path.  Out-of-scope exclusions (with reasons) live in "
